@@ -1,0 +1,9 @@
+"""Hand-written Hopper kernels (CUDA C++ in ``csrc/``), each with its plain PyTorch
+version (``ref.py``), a ctypes wrapper with a launch counter, and a public op that
+dispatches by device (``ops.py``)."""
+
+from . import ref
+from .build import LAUNCHES, reset_launches
+from .ops import flash_attention, rmsnorm
+
+__all__ = ["ref", "flash_attention", "rmsnorm", "LAUNCHES", "reset_launches"]

@@ -1,0 +1,168 @@
+"""Layer building blocks: RMSNorm, GQA attention (global / sliding-window), GLU MLP.
+
+The port of the dense part of ``repro.models.layers``.  Every block is a pair of
+functions ``*_init(cfg, gen) -> params`` and ``*_apply(cfg, params, …) -> y``,
+plus a cached decode variant for attention.  Parameters keep the reference's
+layouts: ``wq``/``wk``/``wv`` are ``(D, heads, hd)`` and ``wo`` is ``(H, hd, D)``;
+q/k/v are ``(B, heads, S, hd)``.  ``impl`` is passed to the kernel ops (``"ref"``
+runs the plain versions on any device).  MoE, Mamba and cross-attention wait for
+later slices.
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch import kernels
+from .common import ModelConfig, apply_rope, dense_init, softcap
+
+Params = dict[str, Any]
+
+# ===========================================================================
+# Norm
+# ===========================================================================
+
+
+def norm_init(cfg: ModelConfig, device: torch.device) -> torch.Tensor:
+    return torch.ones((cfg.d_model,), dtype=torch.float32, device=device)
+
+
+def norm_apply(
+    cfg: ModelConfig, w: torch.Tensor, x: torch.Tensor, *, impl: str | None = None
+) -> torch.Tensor:
+    return kernels.rmsnorm(x, w, eps=cfg.norm_eps, impl=impl)
+
+
+# ===========================================================================
+# Attention (global / sliding-window, GQA)
+# ===========================================================================
+
+
+def attn_init(cfg: ModelConfig, gen: torch.Generator) -> Params:
+    D, H, KVH, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    dt = cfg.pdtype
+    return {
+        "wq": dense_init(gen, (D, H, hd), dt, fan_in=D),
+        "wk": dense_init(gen, (D, KVH, hd), dt, fan_in=D),
+        "wv": dense_init(gen, (D, KVH, hd), dt, fan_in=D),
+        "wo": dense_init(gen, (H, hd, D), dt, fan_in=H * hd),
+    }
+
+
+def _proj(cfg: ModelConfig, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x (B, S, D) · w (D, heads, hd) → (B, heads, S, hd), contiguous."""
+    B, S, D = x.shape
+    _, heads, hd = w.shape
+    y = x.reshape(B * S, D) @ w.to(cfg.cdtype).reshape(D, heads * hd)
+    return y.reshape(B, S, heads, hd).transpose(1, 2).contiguous()
+
+
+def _qkv(cfg: ModelConfig, p: Params, x: torch.Tensor):
+    return _proj(cfg, x, p["wq"]), _proj(cfg, x, p["wk"]), _proj(cfg, x, p["wv"])
+
+
+def _out(cfg: ModelConfig, p: Params, o: torch.Tensor) -> torch.Tensor:
+    """o (B, H, S, hd) · wo (H, hd, D) → (B, S, D)."""
+    B, H, S, hd = o.shape
+    wo = p["wo"].to(cfg.cdtype).reshape(H * hd, -1)
+    return (o.transpose(1, 2).reshape(B * S, H * hd) @ wo).reshape(B, S, -1)
+
+
+def attn_apply(
+    cfg: ModelConfig,
+    p: Params,
+    x: torch.Tensor,
+    positions: torch.Tensor,
+    *,
+    kind: str = "global",
+    impl: str | None = None,
+) -> torch.Tensor:
+    """Full-sequence causal self-attention (prefill).  x: (B, S, D)."""
+    q, k, v = _qkv(cfg, p, x)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    window = cfg.local_window if kind == "local" else None
+    o = kernels.flash_attention(q, k, v, causal=True, window=window, impl=impl)
+    return _out(cfg, p, o)
+
+
+def attn_cache_init(
+    cfg: ModelConfig, batch: int, max_len: int, device: torch.device, *, kind: str = "global"
+) -> Params:
+    """A local (sliding-window) cache is a ring of ``min(max_len, window)`` slots."""
+    size = min(max_len, cfg.local_window) if kind == "local" else max_len
+    shape = (batch, cfg.n_kv_heads, size, cfg.hd)
+    return {
+        "k": torch.zeros(shape, dtype=cfg.cdtype, device=device),
+        "v": torch.zeros(shape, dtype=cfg.cdtype, device=device),
+    }
+
+
+def attn_decode(
+    cfg: ModelConfig,
+    p: Params,
+    x_t: torch.Tensor,
+    pos: int,
+    cache: Params,
+    *,
+    kind: str = "global",
+) -> tuple[torch.Tensor, Params]:
+    """One-token decode.  x_t: (B, 1, D); pos: absolute position of the token.
+
+    Writes the token's K/V into ``cache`` in place (slot ``pos % size`` for a
+    local ring) and returns ``(y, cache)``.  The attention itself is plain f32
+    math on a grouped-head view, as in the reference: no kernel."""
+    B = x_t.shape[0]
+    size = cache["k"].shape[2]
+    positions = torch.full((1,), pos, device=x_t.device)  # a fill, not a host-to-device copy
+    q = apply_rope(_proj(cfg, x_t, p["wq"]), positions, cfg.rope_theta)
+    k_t = apply_rope(_proj(cfg, x_t, p["wk"]), positions, cfg.rope_theta)
+    v_t = _proj(cfg, x_t, p["wv"])
+
+    slot = pos % size if kind == "local" else pos
+    cache["k"][:, :, slot] = k_t[:, :, 0].to(cache["k"].dtype)
+    cache["v"][:, :, slot] = v_t[:, :, 0].to(cache["v"].dtype)
+
+    # visibility: slot j holds absolute position p_j; attend iff 0 <= p_j <= pos
+    j = torch.arange(size, device=x_t.device)
+    p_j = pos - torch.remainder(pos - j, size) if kind == "local" else j
+    valid = (p_j >= 0) & (p_j <= pos)
+
+    group = cfg.n_heads // cfg.n_kv_heads
+    qg = q.to(torch.float32).reshape(B, cfg.n_kv_heads, group, 1, cfg.hd)
+    s = torch.einsum("bkgqd,bksd->bkgqs", qg, cache["k"].to(torch.float32)) * (cfg.hd**-0.5)
+    s = softcap(s, cfg.attn_logit_softcap)
+    s = torch.where(valid, s, torch.full_like(s, -1e30))
+    pattn = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgqs,bksd->bkgqd", pattn, cache["v"].to(torch.float32))
+    o = o.reshape(B, cfg.n_heads, 1, cfg.hd).to(cfg.cdtype)
+    return _out(cfg, p, o), cache
+
+
+# ===========================================================================
+# Dense GLU MLP
+# ===========================================================================
+
+
+def mlp_init(cfg: ModelConfig, gen: torch.Generator, d_ff: int | None = None) -> Params:
+    D, Fd = cfg.d_model, d_ff or cfg.d_ff
+    dt = cfg.pdtype
+    return {
+        "wi": dense_init(gen, (D, Fd), dt),
+        "wg": dense_init(gen, (D, Fd), dt),
+        "wo": dense_init(gen, (Fd, D), dt, fan_in=Fd),
+    }
+
+
+def _act(cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    # jax.nn.gelu defaults to the tanh approximation; F.gelu to erf
+    return F.silu(x) if cfg.mlp_act == "silu" else F.gelu(x, approximate="tanh")
+
+
+def mlp_apply(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
+    h = x @ p["wi"].to(cfg.cdtype)
+    g = x @ p["wg"].to(cfg.cdtype)
+    return (h * _act(cfg, g)) @ p["wo"].to(cfg.cdtype)

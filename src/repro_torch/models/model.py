@@ -1,0 +1,290 @@
+"""Model assembly: embedding → layer stack → head, for the dense attention models.
+
+Three execution paths share one parameter dictionary:
+
+* ``forward``      — full-sequence forward (logits).
+* ``prefill``      — full-sequence forward that also fills the KV caches.
+* ``decode_step``  — single-token step against the caches.
+
+The reference scans over stacked segments of layers (``lax.scan``); here the
+layers are a plain list in depth order and run in a Python loop.
+:func:`repro_torch.models.convert.params_from_jax` unstacks the reference's
+segments into that list.  Parameters: ``{"embed": (V, D), "layers": [...],
+"final_norm": (D,)}`` plus ``"lm_head": (D, V)`` when embeddings are not tied.
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+import torch
+
+from repro_torch import kernels
+from repro_torch.device import resolve_device
+from . import layers as L
+from .common import LayerSpec, ModelConfig, apply_rope
+
+Params = dict[str, Any]
+
+
+def check_supported(spec: LayerSpec) -> None:
+    if spec.mixer != "attn" or spec.moe or spec.cross_attn or not spec.ffn:
+        raise NotImplementedError(
+            f"layer {spec.tag!r} is not ported yet (ROADMAP.md §A: MoE, cross-attention "
+            "and encoder-decoder layers; §B K5 with the Mamba layers)"
+        )
+
+
+# ===========================================================================
+# Per-layer init / apply
+# ===========================================================================
+
+
+def layer_init(
+    cfg: ModelConfig, spec: LayerSpec, gen: torch.Generator, device: torch.device
+) -> Params:
+    check_supported(spec)
+    return {
+        "norm1": L.norm_init(cfg, device),
+        "mixer": L.attn_init(cfg, gen),
+        "norm2": L.norm_init(cfg, device),
+        "ffn": L.mlp_init(cfg, gen),
+    }
+
+
+def layer_apply(
+    cfg: ModelConfig,
+    spec: LayerSpec,
+    p: Params,
+    x: torch.Tensor,
+    positions: torch.Tensor,
+    *,
+    impl: str | None = None,
+) -> torch.Tensor:
+    h = L.norm_apply(cfg, p["norm1"], x, impl=impl)
+    x = x + L.attn_apply(cfg, p["mixer"], h, positions, kind=spec.attn_kind, impl=impl)
+    h2 = L.norm_apply(cfg, p["norm2"], x, impl=impl)
+    return x + L.mlp_apply(cfg, p["ffn"], h2)
+
+
+def layer_cache_init(
+    cfg: ModelConfig, spec: LayerSpec, batch: int, max_len: int, device: torch.device
+) -> Params:
+    return {"self": L.attn_cache_init(cfg, batch, max_len, device, kind=spec.attn_kind)}
+
+
+def layer_decode(
+    cfg: ModelConfig,
+    spec: LayerSpec,
+    p: Params,
+    x_t: torch.Tensor,
+    pos: int,
+    cache: Params,
+    *,
+    impl: str | None = None,
+) -> tuple[torch.Tensor, Params]:
+    h = L.norm_apply(cfg, p["norm1"], x_t, impl=impl)
+    y, cache["self"] = L.attn_decode(cfg, p["mixer"], h, pos, cache["self"], kind=spec.attn_kind)
+    x_t = x_t + y
+    h2 = L.norm_apply(cfg, p["norm2"], x_t, impl=impl)
+    return x_t + L.mlp_apply(cfg, p["ffn"], h2), cache
+
+
+def layer_prefill(
+    cfg: ModelConfig,
+    spec: LayerSpec,
+    p: Params,
+    x: torch.Tensor,
+    positions: torch.Tensor,
+    max_len: int,
+    *,
+    impl: str | None = None,
+) -> tuple[torch.Tensor, Params]:
+    """Forward + cache construction: the same math as ``layer_apply``, and the
+    last ``size`` K/V positions stored in the layer's cache."""
+    B, S, _ = x.shape
+    h = L.norm_apply(cfg, p["norm1"], x, impl=impl)
+    q, k, v = L._qkv(cfg, p["mixer"], h)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    window = cfg.local_window if spec.attn_kind == "local" else None
+    o = kernels.flash_attention(q, k, v, causal=True, window=window, impl=impl)
+    y = L._out(cfg, p["mixer"], o)
+
+    cache = layer_cache_init(cfg, spec, B, max_len, x.device)
+    ck, cv = cache["self"]["k"], cache["self"]["v"]
+    size = ck.shape[2]
+    tail = min(S, size)
+    ktail, vtail = k[:, :, S - tail:], v[:, :, S - tail:]
+    if spec.attn_kind == "local" and S > size:
+        # ring placement: the token at absolute position p lives in slot p % size
+        idx = torch.remainder(torch.arange(tail, device=x.device) + (S - tail), size)
+        ck[:, :, idx] = ktail.to(ck.dtype)
+        cv[:, :, idx] = vtail.to(cv.dtype)
+    else:
+        ck[:, :, :tail] = ktail.to(ck.dtype)
+        cv[:, :, :tail] = vtail.to(cv.dtype)
+
+    x = x + y
+    h2 = L.norm_apply(cfg, p["norm2"], x, impl=impl)
+    return x + L.mlp_apply(cfg, p["ffn"], h2), cache
+
+
+# ===========================================================================
+# Stack
+# ===========================================================================
+
+
+def stack_init(cfg: ModelConfig, gen: torch.Generator, device: torch.device) -> list[Params]:
+    return [layer_init(cfg, spec, gen, device) for spec in cfg.layer_specs()]
+
+
+def stack_apply(
+    cfg: ModelConfig,
+    layers: list[Params],
+    x: torch.Tensor,
+    positions: torch.Tensor,
+    *,
+    impl: str | None = None,
+) -> torch.Tensor:
+    for spec, lp in zip(cfg.layer_specs(), layers, strict=True):
+        x = layer_apply(cfg, spec, lp, x, positions, impl=impl)
+    return x
+
+
+def stack_cache_init(
+    cfg: ModelConfig, batch: int, max_len: int, device: torch.device
+) -> list[Params]:
+    return [layer_cache_init(cfg, spec, batch, max_len, device) for spec in cfg.layer_specs()]
+
+
+def stack_decode(
+    cfg: ModelConfig,
+    layers: list[Params],
+    caches: list[Params],
+    x_t: torch.Tensor,
+    pos: int,
+    *,
+    impl: str | None = None,
+) -> tuple[torch.Tensor, list[Params]]:
+    new_caches = []
+    for spec, lp, lc in zip(cfg.layer_specs(), layers, caches, strict=True):
+        x_t, nc = layer_decode(cfg, spec, lp, x_t, pos, lc, impl=impl)
+        new_caches.append(nc)
+    return x_t, new_caches
+
+
+def stack_prefill(
+    cfg: ModelConfig,
+    layers: list[Params],
+    x: torch.Tensor,
+    positions: torch.Tensor,
+    max_len: int,
+    *,
+    impl: str | None = None,
+) -> tuple[torch.Tensor, list[Params]]:
+    caches = []
+    for spec, lp in zip(cfg.layer_specs(), layers, strict=True):
+        x, c = layer_prefill(cfg, spec, lp, x, positions, max_len, impl=impl)
+        caches.append(c)
+    return x, caches
+
+
+# ===========================================================================
+# Full model
+# ===========================================================================
+
+
+def init_params(cfg: ModelConfig, seed: int = 0, device: str | torch.device = "cuda") -> Params:
+    """Random weights from a ``torch.Generator`` seeded with ``seed``, made on ``device``."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    p: Params = {
+        "embed": L.dense_init(gen, (cfg.vocab, cfg.d_model), cfg.pdtype, fan_in=cfg.d_model),
+        "layers": stack_init(cfg, gen, dev),
+        "final_norm": L.norm_init(cfg, dev),
+    }
+    if not cfg.tie_embeddings:
+        p["lm_head"] = L.dense_init(gen, (cfg.d_model, cfg.vocab), cfg.pdtype)
+    return p
+
+
+def _embed(cfg: ModelConfig, p: Params, tokens: torch.Tensor) -> torch.Tensor:
+    x = p["embed"][tokens.long()].to(cfg.cdtype)
+    if cfg.tie_embeddings:
+        # gemma-style embedding scale, rounded to the compute dtype first as the
+        # reference's weakly typed scalar is
+        x = x * torch.tensor(cfg.d_model**0.5, dtype=cfg.cdtype)
+    return x
+
+
+def _matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b with exact products, f32 accumulation and an f32 result: the reference's
+    ``preferred_element_type=float32``.  On the card a bf16 GEMM writes f32 directly;
+    elsewhere the operands are widened to f32, which gives the same exact products."""
+    if a.is_cuda and a.dtype != torch.float32:
+        return torch.mm(a, b, out_dtype=torch.float32)
+    return a.to(torch.float32) @ b.to(torch.float32)
+
+
+def _logits(cfg: ModelConfig, p: Params, x: torch.Tensor, *, impl: str | None = None):
+    x = L.norm_apply(cfg, p["final_norm"], x, impl=impl)
+    w = p["embed"].to(cfg.cdtype).T if cfg.tie_embeddings else p["lm_head"].to(cfg.cdtype)
+    B, S, D = x.shape
+    return _matmul_f32(x.reshape(B * S, D), w).reshape(B, S, -1)
+
+
+def forward(
+    cfg: ModelConfig, p: Params, tokens: torch.Tensor, *, impl: str | None = None
+) -> torch.Tensor:
+    """Full-sequence forward.  tokens (B, S) int → logits (B, S, V) f32.
+
+    The reference also returns the MoE auxiliary loss, which is zero for the
+    dense layers ported here."""
+    S = tokens.shape[1]
+    pos = torch.arange(S, device=tokens.device)
+    x = _embed(cfg, p, tokens)
+    x = stack_apply(cfg, p["layers"], x, pos, impl=impl)
+    return _logits(cfg, p, x, impl=impl)
+
+
+def cache_init(
+    cfg: ModelConfig, batch: int, max_len: int, device: str | torch.device = "cuda"
+) -> list[Params]:
+    return stack_cache_init(cfg, batch, max_len, resolve_device(device))
+
+
+def prefill(
+    cfg: ModelConfig,
+    p: Params,
+    tokens: torch.Tensor,
+    max_len: int,
+    *,
+    impl: str | None = None,
+) -> tuple[torch.Tensor, list[Params]]:
+    """tokens (B, S) int → (logits of the last position (B, V) f32, caches)."""
+    S = tokens.shape[1]
+    pos = torch.arange(S, device=tokens.device)
+    x = _embed(cfg, p, tokens)
+    x, caches = stack_prefill(cfg, p["layers"], x, pos, max_len, impl=impl)
+    logits = _logits(cfg, p, x[:, -1:].contiguous(), impl=impl)[:, 0]
+    return logits, caches
+
+
+def decode_step(
+    cfg: ModelConfig,
+    p: Params,
+    token_t: torch.Tensor,
+    pos: int,
+    caches: list[Params],
+    *,
+    impl: str | None = None,
+) -> tuple[torch.Tensor, list[Params]]:
+    """token_t: (B,) int; pos: its absolute position.  Returns ((B, V) f32, caches).
+
+    The caches are updated in place (the reference returns new arrays); the
+    returned list holds the same tensors."""
+    x_t = _embed(cfg, p, token_t[:, None])
+    x_t, caches = stack_decode(cfg, p["layers"], caches, x_t, int(pos), impl=impl)
+    logits = _logits(cfg, p, x_t, impl=impl)[:, 0]
+    return logits, caches

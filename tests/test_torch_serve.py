@@ -1,0 +1,150 @@
+"""The port's serving driver (``repro_torch.launch.serve``) on the CPU.
+
+* ``main`` runs end to end on the reduced gemma3 config and prints its lines.
+* With weights carried across, the port's greedy decode loop gives the
+  reference loop's logits at every step, teacher-forced on the reference's
+  tokens: 3e-4 for the prefill logits and 5e-4 for each decode step, the
+  reference's own prefill/decode tolerances (``tests/models/test_models.py``).
+* The kernels' argument checks and launch counts, applied on the CPU: the main
+  path hands every kernel operands it takes, K4 once per layer in prefill and
+  never in decode, K2 twice per layer plus once for the final norm.
+"""
+
+import ast
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro import configs as jconfigs
+from repro import models as jmodels
+from repro_torch import configs as tconfigs
+from repro_torch import resolve_device
+from repro_torch.kernels import LAUNCHES, ops, ref, reset_launches
+from repro_torch.kernels.flash_attention import check_args as fa_check_args
+from repro_torch.kernels.rmsnorm import check_args as rms_check_args
+from repro_torch.launch import serve
+from repro_torch.models import init_params
+from repro_torch.models.convert import params_from_jax
+
+PREFILL_TOL = dict(rtol=3e-4, atol=3e-4)
+DECODE_TOL = dict(rtol=5e-4, atol=5e-4)
+
+
+def test_main_runs_on_cpu_and_prints(capsys):
+    rc = serve.main(
+        ["--reduced", "--device", "cpu", "--batch", "2", "--prompt-len", "12", "--gen", "4"]
+    )
+    assert rc == 0
+    out = capsys.readouterr().out.splitlines()
+    assert out[0].startswith("prefill: 2×12 tokens in ") and out[0].endswith("on cpu")
+    assert out[1].startswith("decode:  4 steps × batch 2 in ") and "tok/s" in out[1]
+    assert out[2] == "sample generations (token ids):"
+    assert len(out) == 5 and len(ast.literal_eval(out[3].strip())) == 4
+
+
+def test_main_refuses_to_run_on_cpu_unasked(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--reduced"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_params(tconfigs.get_config("gemma3-1b", reduced=True))
+    assert resolve_device("cpu") == torch.device("cpu")
+    with pytest.raises(ValueError, match="unsupported device"):
+        resolve_device("meta")
+
+
+def test_prompts_are_the_reference_drivers():
+    cfg = tconfigs.get_config("gemma3-1b", reduced=True)
+    got = serve.make_prompts(cfg, 4, 32, torch.device("cpu"))
+    want = np.random.default_rng(0).integers(0, cfg.vocab, (4, 32))
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def _jax_greedy_loop(cfg, params, prompts, gen):
+    """The reference driver's loop (``repro.launch.serve``, --compiler jax)."""
+    P = prompts.shape[1]
+    logits, caches = jmodels.prefill(cfg, params, prompts, P + gen)
+    first = logits
+    tok = jnp.argmax(logits, axis=-1).astype(jnp.int32)
+    toks, step_logits = [], []
+    for i in range(gen):
+        toks.append(tok)
+        logits, caches = jmodels.decode_step(cfg, params, tok, jnp.int32(P + i), caches)
+        step_logits.append(logits)
+        tok = jnp.argmax(logits, axis=-1).astype(jnp.int32)
+    return first, np.stack([np.asarray(t) for t in toks], axis=1), step_logits
+
+
+@pytest.mark.parametrize("arch", ["gemma3-1b", "internlm2-1.8b"])
+def test_greedy_decode_matches_reference_loop(arch):
+    jc = jconfigs.get_config(arch, reduced=True)
+    tc = tconfigs.get_config(arch, reduced=True)
+    B, P, GEN = 2, 12, 6
+    jp = jmodels.init_params(jc, jax.random.PRNGKey(0))
+    tp = params_from_jax(tc, jax.tree.map(np.asarray, jp), device="cpu")
+    prompts = serve.make_prompts(tc, B, P, torch.device("cpu"))
+
+    jfirst, jtoks, jlogits = _jax_greedy_loop(jc, jp, jnp.asarray(prompts.numpy()), GEN)
+    logits, caches = serve.serve_prefill(tc, tp, prompts, P + GEN)
+    np.testing.assert_allclose(logits.numpy(), np.asarray(jfirst), **PREFILL_TOL)
+    toks, kept = serve.serve_decode(
+        tc, tp, logits, caches, P, GEN, forced=torch.from_numpy(jtoks), keep_logits=True
+    )
+    np.testing.assert_array_equal(toks.numpy(), jtoks)
+    assert len(kept) == GEN
+    for got, want in zip(kept, jlogits):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **DECODE_TOL)
+
+    # untethered, the port's own greedy picks are the reference's
+    logits, caches = serve.serve_prefill(tc, tp, prompts, P + GEN)
+    own, _ = serve.serve_decode(tc, tp, logits, caches, P, GEN)
+    assert own.dtype == torch.int32
+    np.testing.assert_array_equal(own.numpy(), jtoks)
+
+
+@pytest.fixture
+def checked_kernels(monkeypatch):
+    """Stand-ins for the CUDA wrappers on the CPU: the wrappers' own argument checks
+    and launch counters in front of the plain versions, and the ops routed to them."""
+
+    def flash_attention_fwd(q, k, v, *, causal, window, sm_scale):
+        fa_check_args(q, k, v, window)
+        LAUNCHES["flash_attention_fwd"] += 1
+        return ref.flash_attention_ref(q, k, v, causal=causal, window=window, sm_scale=sm_scale)
+
+    def rmsnorm_fwd(x, w, *, eps):
+        rms_check_args(x, w)
+        LAUNCHES["rmsnorm_fwd"] += 1
+        return ref.rmsnorm_ref(x, w, eps)
+
+    monkeypatch.setattr(ops, "flash_attention_fwd", flash_attention_fwd)
+    monkeypatch.setattr(ops, "rmsnorm_fwd", rmsnorm_fwd)
+    monkeypatch.setattr(ops, "_use_kernel", lambda x, impl: impl is None)
+    reset_launches()
+    yield
+    reset_launches()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_main_path_hands_kernels_what_they_take(checked_kernels, dtype):
+    cfg = dataclasses.replace(
+        tconfigs.get_config("gemma3-1b", reduced=True), param_dtype=dtype, compute_dtype=dtype
+    )
+    L, B, P, GEN = cfg.n_layers, 2, 12, 3
+    params = init_params(cfg, seed=0, device="cpu")
+    prompts = serve.make_prompts(cfg, B, P, torch.device("cpu"))
+    logits, caches = serve.serve_prefill(cfg, params, prompts, P + GEN)
+    assert LAUNCHES == {"flash_attention_fwd": L, "rmsnorm_fwd": 2 * L + 1}
+    reset_launches()
+    toks, kept = serve.serve_decode(cfg, params, logits, caches, P, GEN, keep_logits=True)
+    assert LAUNCHES == {"flash_attention_fwd": 0, "rmsnorm_fwd": (2 * L + 1) * GEN}
+    assert all(bool(torch.isfinite(k).all()) and k.dtype == torch.float32 for k in kept)
+    # impl="ref" reaches no kernel
+    reset_launches()
+    serve.serve_prefill(cfg, params, prompts, P + GEN, impl="ref")
+    assert LAUNCHES == {"flash_attention_fwd": 0, "rmsnorm_fwd": 0}
