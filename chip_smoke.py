@@ -16,7 +16,22 @@ Drives ``repro_torch`` only (never ``repro`` or ``jax``), on one CUDA device:
 5. serves gemma3-1b at full width in bf16 (random weights from a seed): batch 4,
    prompt 1024, 32 greedy tokens, through ``repro_torch.launch.serve``, counting
    the kernel launches of the run;
-6. runs the same prefill with the plain versions and compares the logits.
+6. runs the same prefill with the plain versions and compares the logits;
+7. holds the training path's kernels against their plain versions: the rmsnorm
+   backward (K3), the attention kernel's logsumexp (K4), and the gradients of the
+   ops' autograd Functions against plain autograd; and the head's bf16 product with
+   an f32 result against f32 products, forward and backward;
+8. checks one small f32 train step, the card with its kernels against the CPU with
+   the plain versions;
+9. trains internlm2-1.8b at full width in bf16 (random weights from a seed):
+   AdamW, batch 8 x 1024, 1 untimed and 20 timed steps through
+   ``repro_torch.distributed``, counting the kernel launches of every step;
+10. computes one step's loss and gradients with the kernels and with the plain
+    versions from the same state and batch, and compares the loss, the gradient
+    norm and every gradient leaf;
+11. runs the fault-tolerant loop (``repro_torch.runtime.train_loop``) on the
+    reduced internlm2 config in bf16 with checkpoints, one injected crash, resume
+    and replay.
 
 A failed phase raises and the script exits non-zero.  The last lines are the
 kernels' record, the card's name and power limit, and the device line.
@@ -24,10 +39,13 @@ kernels' record, the card's name and power limit, and the device line.
 
 from __future__ import annotations
 
+import dataclasses
 import json
+import math
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -42,6 +60,37 @@ F32_FLOPS = 67e12
 SLICE_REL_BOUND = 5e-2
 
 TOL = {"float32": dict(rtol=2e-5, atol=2e-5), "bfloat16": dict(rtol=2e-2, atol=2e-2)}
+# the rmsnorm backward's dx in f32, as tests/kernels/test_rmsnorm.py holds it
+BWD_TOL = dict(rtol=1e-4, atol=1e-5)
+# attention gradients, as tests/kernels/test_flash_attention.py holds them
+GRAD_TOL = dict(rtol=2e-4, atol=2e-4)
+
+# Full-width training, kernels against plain versions from the same state and batch
+# (phase 10), both in bf16 through 24 layers forward and backward.  Both compute
+# each op in f32 and round to bf16 at the same places, so they differ only where f32
+# sums in another order cross a bf16 rounding boundary.  Read on an H100 (this
+# script, internlm2-1.8b after 21 steps): loss 7.6e-6 and gradient norm 4.5e-5
+# relative to the naive plain versions; the bounds sit 13 and 22 times above.
+TRAIN_LOSS_REL_BOUND = 1e-4
+TRAIN_GNORM_REL_BOUND = 1e-3
+# A wrong term can leave those two sums nearly unmoved (a change orthogonal to the
+# gradient moves its norm only to second order), so the gradient is also held leaf
+# by leaf, |g_kernel - g_plain| / |g_plain| over each leaf, against the plain
+# versions with the same attention backward (impl="chunked").  Read on an H100: at
+# most 6.2e-3 (the embedding, whose bf16 rows gather many tokens' adds; 2.3e-3 for
+# the rest).  The gradients of wq and wk pass through the softmax backward's
+# p·(dp - delta), which cancels where attention is still nearly uniform, and delta
+# sums do·o over the bf16 output o, which K4 and its plain version round apart:
+# read 8.5e-2, held to their own bound.  A negative control, the rmsnorm backward
+# without dx's x·r³·mean(dy·w·x) term (2.2% of dx at D 2048, fed to every earlier
+# leaf), puts the median leaf at 0.45: the bounds catch it.
+TRAIN_GRAD_REL_BOUND = 2e-2
+TRAIN_QK_GRAD_REL_BOUND = 0.25
+
+# Replayed steps after a restore see the same batches and restored state; the ops are
+# deterministic except the embedding gradient's index_put_, which may add a token's
+# repeated rows in another order.  Replayed bf16 losses must agree within 1e-3.
+REPLAY_REL_BOUND = 1e-3
 
 # (B, H, KVH, Sq, Skv, D, causal, window): the cases of the kernel tests
 FA_TEST_CASES = [
@@ -97,11 +146,20 @@ def main() -> int:
     import torch.nn.functional as F
 
     from repro_torch.configs import get_config
-    from repro_torch.kernels import LAUNCHES, build, ref, reset_launches
+    from repro_torch.data import DataConfig, SyntheticLM, to_device
+    from repro_torch.distributed import make_train_state_fn, make_train_step
+    from repro_torch.kernels import LAUNCHES, build, ops, ref, reset_launches
     from repro_torch.kernels.flash_attention import flash_attention_fwd
-    from repro_torch.kernels.rmsnorm import rmsnorm_fwd
+    from repro_torch.kernels.rmsnorm import rmsnorm_bwd, rmsnorm_fwd
     from repro_torch.launch.serve import make_prompts, serve_decode, serve_prefill
-    from repro_torch.models import init_params
+    from repro_torch.models import init_params, loss_fn
+    from repro_torch.models.model import _matmul_f32 as matmul_f32
+    from repro_torch.models.model import remat_layers, stacked_layer_groups
+    from repro_torch.optim import OptConfig, make_optimizer
+    from repro_torch.runtime import TrainLoopConfig, train_loop
+    from repro_torch.tree import leaves as tree_leaves
+    from repro_torch.tree import leaves_with_paths as tree_leaves_with_paths
+    from repro_torch.tree import map_leaves
 
     # -- 1. device -----------------------------------------------------------
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -201,6 +259,228 @@ def main() -> int:
             f"{flops / rec['ms'] / 1e9:.2f} TFLOP/s")
         return rec
 
+
+    def rms_bwd_case(x, w, dy):
+        """K3 against its plain version: errors, kernel / plain / F.rms_norm-backward
+        times, bound."""
+        dx, dw = rmsnorm_bwd(x, w, dy)
+        want_dx, want_dw = ref.rmsnorm_bwd_ref(x, w, dy)
+        tol = BWD_TOL if x.dtype == torch.float32 else TOL["bfloat16"]
+        torch.testing.assert_close(dx.float(), want_dx.float(), **tol)
+        err = (dx.float() - want_dx.float()).abs().max().item()
+        # dw sums every row in another order: bound 1e-6·Σ|dy·x·r| + 1e-5 (~17 ε)
+        mag = ref.rmsnorm_bwd_ref(x.abs(), w, dy.abs())[1]
+        dw_err = (dw - want_dw).abs()
+        assert bool((dw_err <= 1e-5 + 1e-6 * mag).all()), dw_err.max().item()
+        x_lib = x.detach().clone().requires_grad_(True)
+        w_lib = w.to(x.dtype).requires_grad_(True)
+        y_lib = F.rms_norm(x_lib, (x.shape[-1],), w_lib, 1e-6)
+        D_ = x.shape[-1]
+        blocks = build.load().rmsnorm_bwd_blocks(x.numel() // D_, D_,
+                                                 build.DTYPE_CODES[dtype_name(x)])
+        # what the function must move: x and dy read, dx written, w read, dw written
+        # (the kernel's per-block dw partials are its own cost, not the function's)
+        nbytes = 3 * x.numel() * x.element_size() + 2 * D_ * 4
+        bound_ms, bound_by = bound(nbytes, 12 * x.numel(), F32_FLOPS)
+        rec = dict(
+            name="rmsnorm_bwd", route="cuda", source="src/repro_torch/csrc/rmsnorm.cu",
+            replaces="src/repro/kernels/rmsnorm.py:72", max_abs_err=max(err, dw_err.max().item()),
+            ms=time_ms(torch, lambda: rmsnorm_bwd(x, w, dy)),
+            plain_ms=time_ms(torch, lambda: ref.rmsnorm_bwd_ref(x, w, dy)),
+            bound_ms=bound_ms, bound_by=bound_by,
+            library_ms=time_ms(torch, lambda: torch.autograd.grad(
+                y_lib, (x_lib, w_lib), dy, retain_graph=True)),
+        )
+        say(f"[kernels] rmsnorm_bwd {dtype_name(x)} x{tuple(x.shape)}: max_abs_err dx {err:.3e} "
+            f"dw {dw_err.max().item():.3e} kernel_ms {rec['ms']:.4f} plain_ms "
+            f"{rec['plain_ms']:.4f} library_ms {rec['library_ms']:.4f} (F.rms_norm backward) "
+            f"bound_ms {bound_ms:.6f} ({bound_by}, {nbytes / 1e6:.1f} MB, {blocks} blocks)")
+        return rec
+
+    def fa_lse_case(q, k, v, causal, window):
+        """K4 with its logsumexp against the chunked twin: errors, kernel / twin / SDPA
+        times, bound.  Every row of these cases has a visible column."""
+        B_, H_, Sq, D_ = q.shape
+        Skv = k.shape[2]
+        o, lse = flash_attention_fwd(q, k, v, causal=causal, window=window, return_lse=True)
+        want_o, want_lse = ref.flash_attention_fwd_lse_chunked(q, k, v, causal=causal,
+                                                               window=window)
+        err = check(o, want_o, dtype_name(q))
+        torch.testing.assert_close(lse, want_lse, **TOL["float32"])
+        lse_err = (lse - want_lse).abs().max().item()
+        if causal and window is None and Sq == Skv:
+            lib = lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True)
+        else:
+            mask = None
+            if causal or window is not None:
+                mask = ref.attention_mask(Sq, Skv, causal=causal, window=window, device=dev)
+            lib = lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask, enable_gqa=True)
+        flops = 4 * B_ * H_ * D_ * visible_pairs(Sq, Skv, causal, window)
+        peak = BF16_TENSOR_FLOPS if q.dtype == torch.bfloat16 else F32_FLOPS
+        bound_ms, bound_by = bound(
+            (2 * q.numel() + k.numel() + v.numel()) * q.element_size() + B_ * H_ * Sq * 4,
+            flops, peak,
+        )
+        rec = dict(
+            name="flash_attention_fwd", route="cuda",
+            source="src/repro_torch/csrc/flash_attention.cu",
+            replaces="src/repro/kernels/flash_attention.py:111",
+            max_abs_err=max(err, lse_err),
+            ms=time_ms(torch, lambda: flash_attention_fwd(q, k, v, causal=causal, window=window,
+                                                          return_lse=True)),
+            plain_ms=time_ms(torch, lambda: ref.flash_attention_fwd_lse_chunked(
+                q, k, v, causal=causal, window=window)),
+            bound_ms=bound_ms, bound_by=bound_by, library_ms=time_ms(torch, lib),
+        )
+        say(f"[kernels] flash_attention_fwd+lse {dtype_name(q)} q{(B_, H_, Sq, D_)} "
+            f"kv{(k.shape[1], Skv)} causal={causal} window={window}: max_abs_err o {err:.3e} "
+            f"lse {lse_err:.3e} kernel_ms {rec['ms']:.4f} plain_ms {rec['plain_ms']:.4f} "
+            f"(chunked twin) library_ms {rec['library_ms']:.4f} (SDPA) bound_ms "
+            f"{bound_ms:.6f} ({bound_by}, {flops / 1e9:.3f} GFLOP) achieved "
+            f"{flops / rec['ms'] / 1e9:.2f} TFLOP/s")
+        return rec
+
+    def flash_bwd_case(q, k, v):
+        """The plain chunked flash backward at the training shape: its time per call."""
+        o, lse = flash_attention_fwd(q, k, v, causal=True, return_lse=True)
+        do = randn(*q.shape, dtype=q.dtype)
+        return time_ms(torch, lambda: ref.flash_attention_bwd_chunked(q, k, v, o, lse, do,
+                                                                      causal=True), reps=10)
+
+    def logits_grad_case(x, w):
+        """The head's bf16 product with an f32 result and its backward (the model's
+        Function, which splits the f32 cotangent into two bf16 parts) against f32
+        products of the widened operands, at the training shape; the cotangent is the
+        cross-entropy's.  Each gradient element within one bf16 ulp (2^-7 relative)
+        plus 1e-5 of the largest entry: rounded once to bf16 (half an ulp) from an f32
+        sum in another order.  (Rounding the cotangent to bf16 first is off by ~5e-2
+        relative.)  Returns the backward's ms."""
+        a, b = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+        y = matmul_f32(a, b)
+        g = torch.softmax(y.detach(), -1)
+        labels = torch.randint(0, w.shape[1], (x.shape[0],), generator=gen, device=dev)
+        g[torch.arange(x.shape[0], device=dev), labels] -= 1.0
+        g /= x.shape[0]
+        da, db = torch.autograd.grad(y, (a, b), g, retain_graph=True)
+        wf = w.float()
+        fracs = []
+        for got, want in ((da, g @ wf.T), (db, x.float().T @ g)):
+            lim = 2**-7 * want.abs() + 1e-5 * want.abs().max()
+            fracs.append(((got.float() - want).abs() / lim).max().item())
+            del want, lim
+        del wf
+        ms = time_ms(torch, lambda: torch.autograd.grad(y, (a, b), g, retain_graph=True),
+                     reps=5)
+        say(f"[train-kernels] logits product {tuple(x.shape)} @ {tuple(w.shape)} bf16 -> f32: "
+            f"backward {ms:.4f} ms; largest error / bound: da {fracs[0]:.3f}, db {fracs[1]:.3f} "
+            f"(bound: 2^-7 relative + 1e-5 of the largest entry)")
+        assert max(fracs) <= 1.0, fracs
+        return ms
+
+    def grad_case_attention(B_, H_, KVH_, Sq, Skv, D_, causal, window):
+        """K4 + the chunked backward (the Function) against plain autograd, f32."""
+        base = [randn(B_, H_, Sq, D_), randn(B_, KVH_, Skv, D_), randn(B_, KVH_, Skv, D_)]
+        g = randn(B_, H_, Sq, D_)
+        grads = {}
+        for impl in (None, "ref"):
+            qkv = [t.clone().requires_grad_(True) for t in base]
+            o = ops.flash_attention(*qkv, causal=causal, window=window, impl=impl)
+            grads[impl] = torch.autograd.grad(o, qkv, g)
+        for a, b in zip(grads[None], grads["ref"]):
+            torch.testing.assert_close(a, b, **GRAD_TOL)
+
+    def grad_case_rmsnorm(shape):
+        """K2 + K3 (the Function) against plain autograd, f32."""
+        x0, w0, g = randn(*shape), 1 + 0.1 * randn(shape[-1]), randn(*shape)
+        grads = {}
+        for impl in (None, "ref"):
+            x, w = x0.clone().requires_grad_(True), w0.clone().requires_grad_(True)
+            grads[impl] = torch.autograd.grad(ops.rmsnorm(x, w, impl=impl), (x, w), g)
+        torch.testing.assert_close(grads[None][0], grads["ref"][0], **BWD_TOL)
+        mag = ref.rmsnorm_bwd_ref(x0.abs(), w0, g.abs())[1]
+        assert bool(((grads[None][1] - grads["ref"][1]).abs() <= 1e-5 + 1e-6 * mag).all())
+
+    def train_small_card_vs_cpu():
+        """Two AdamW steps of gemma3-reduced in f32 from one state and batch: the card
+        with its kernels against the CPU with the plain versions.  Loss and gnorm at
+        2e-4 (f32 sums in another order through 6 layers, forward and backward); the
+        gradients at 2e-4 of each leaf's largest entry; parameters after the second
+        step within 1e-4 (read: under 1e-5).  AdamW moves an element by about
+        lr·sign(m/√v), so an element whose m took the other sign on the other device
+        would sit 2·lr = 2e-3 apart: the bound allows no such flip."""
+        small = get_config("gemma3-1b", reduced=True)
+        sopt = make_optimizer(OptConfig(lr=1e-3, warmup_steps=1, total_steps=10))
+        st_cpu = make_train_state_fn(small, sopt, device="cpu", seed=1)()
+        st_card = map_leaves(lambda t: t.to(dev), st_cpu)
+        sds = SyntheticLM(DataConfig(vocab=small.vocab, seq_len=32, global_batch=2))
+        grads = {}
+        for where, p in (("cpu", st_cpu["params"]), ("card", st_card["params"])):
+            b = to_device(sds.batch(0), "cpu" if where == "cpu" else dev)
+            live = map_leaves(lambda t: t.detach().requires_grad_(True), p)
+            loss, _ = loss_fn(small, live, b)
+            grads[where] = [g.cpu() for g in torch.autograd.grad(loss, tree_leaves(live))]
+        for a, b in zip(grads["card"], grads["cpu"]):
+            torch.testing.assert_close(a, b, rtol=0, atol=2e-4 * float(b.abs().max()) + 1e-8)
+        sstep = make_train_step(small, sopt)
+        for i in range(2):
+            st_cpu, mc = sstep(st_cpu, to_device(sds.batch(i), "cpu"))
+            st_card, mg = sstep(st_card, to_device(sds.batch(i), dev))
+            for key in ("loss", "gnorm"):
+                torch.testing.assert_close(mg[key].cpu(), mc[key], rtol=2e-4, atol=2e-4)
+        moved = 0
+        for a, b in zip(tree_leaves(st_card["params"]), tree_leaves(st_cpu["params"])):
+            torch.testing.assert_close(a.cpu(), b, rtol=0, atol=1e-4)
+            moved += int(((a.cpu() - b).abs() > 1e-5).sum())
+        assert int(st_card["step"]) == 2
+        say(f"[train-small] gemma3-reduced f32, 2 AdamW steps: card kernels agree with CPU "
+            f"plain (grads 2e-4 of scale, loss/gnorm 2e-4, params within 1e-4; "
+            f"{moved} parameters differ by more than 1e-5)")
+
+    def train_loop_with_crash(device):
+        """train_loop on internlm2-reduced in bf16 with checkpoints every 10 steps and
+        a crash injected at step 25: one restart, replay from step 20, and the
+        replayed losses against the first pass's.  Then the same run without a crash
+        gives the same final parameters."""
+        cfg_r = dataclasses.replace(get_config("internlm2-1.8b", reduced=True),
+                                    param_dtype="bfloat16", compute_dtype="bfloat16")
+        ropt = make_optimizer(OptConfig(lr=3e-3, warmup_steps=5, total_steps=40),
+                              layer_groups=stacked_layer_groups(cfg_r))
+        rds = SyntheticLM(DataConfig(vocab=cfg_r.vocab, seq_len=32, global_batch=4))
+        init_fn = make_train_state_fn(cfg_r, ropt, device=device, seed=0)
+        step = make_train_step(cfg_r, ropt)
+        armed = {"on": True}
+
+        def injector(s):
+            if s == 25 and armed["on"]:
+                armed["on"] = False
+                raise RuntimeError("simulated preemption")
+
+        with tempfile.TemporaryDirectory() as tmp:
+            loop = TrainLoopConfig(total_steps=40, checkpoint_every=10,
+                                   checkpoint_dir=str(Path(tmp) / "a"))
+            t0 = time.monotonic()
+            res = train_loop(loop, step, init_fn, lambda s: to_device(rds.batch(s), device),
+                             device=device, fault_injector=injector)
+            loop_s = time.monotonic() - t0
+            clean = train_loop(dataclasses.replace(loop, checkpoint_dir=str(Path(tmp) / "b")),
+                               step, init_fn, lambda s: to_device(rds.batch(s), device),
+                               device=device)
+        assert res.final_step == 40 and res.restarts == 1 and int(res.state["step"]) == 40
+        assert len(res.losses) == 45, len(res.losses)  # steps 0-24, then 20-39 again
+        first, again = res.losses[20:25], res.losses[25:30]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(again, first))
+        same_params = all(torch.equal(a, b) for a, b in zip(tree_leaves(res.state["params"]),
+                                                            tree_leaves(clean.state["params"])))
+        say(f"[train-loop] internlm2-reduced bf16 on {device}: 40 steps in {loop_s:.2f}s with "
+            f"1 crash at step 25 and {res.restarts} restart; replayed losses of steps 20-24 "
+            f"vs first pass: max rel diff {rel:.3e} (bitwise equal: {again == first}); final "
+            f"parameters equal to an uncrashed run's: {same_params}; loss "
+            f"{statistics.mean(res.losses[:5]):.4f} -> {statistics.mean(res.losses[-5:]):.4f}")
+        assert rel <= REPLAY_REL_BOUND, (again, first)
+        assert statistics.mean(res.losses[-5:]) < statistics.mean(res.losses[:5])
+        assert clean.losses[20:25] == first or max(
+            abs(a - b) / abs(b) for a, b in zip(clean.losses[20:25], first)) <= REPLAY_REL_BOUND
+
     # the test shapes, f32 and bf16
     for dtype in (torch.float32, torch.bfloat16):
         for B, H, KVH, Sq, Skv, D, causal, window in FA_TEST_CASES:
@@ -227,7 +507,7 @@ def main() -> int:
     # -- 4. the slice on a small f32 model: card with kernels vs CPU plain ---
     small = get_config("gemma3-1b", reduced=True)
     sp = init_params(small, seed=0, device="cpu")
-    sp_cuda = _to_device(sp, dev)
+    sp_cuda = map_leaves(lambda t: t.to(dev), sp)
     prompts_small = make_prompts(small, 2, 12, torch.device("cpu"))
     lc, cc = serve_prefill(small, sp, prompts_small, 16)
     lg, cg = serve_prefill(small, sp_cuda, prompts_small.to(dev), 16)
@@ -268,17 +548,16 @@ def main() -> int:
         f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     say(f"[serve] launches: prefill {prefill_counts}; decode {decode_counts} over {GEN} steps")
     n_layers = cfg.n_layers
-    assert prefill_counts == {"flash_attention_fwd": n_layers, "rmsnorm_fwd": 2 * n_layers + 1}, \
-        prefill_counts
-    assert decode_counts == {"flash_attention_fwd": 0, "rmsnorm_fwd": (2 * n_layers + 1) * GEN}, \
-        decode_counts
+    assert prefill_counts == {"flash_attention_fwd": n_layers, "rmsnorm_fwd": 2 * n_layers + 1,
+                              "rmsnorm_bwd": 0}, prefill_counts
+    assert decode_counts == {"flash_attention_fwd": 0, "rmsnorm_fwd": (2 * n_layers + 1) * GEN,
+                             "rmsnorm_bwd": 0}, decode_counts
     assert logits.shape == (B, cfg.vocab) and tokens.shape == (B, GEN)
     assert tokens.dtype == torch.int32
     assert bool(torch.isfinite(logits).all()), "non-finite prefill logits"
     assert all(bool(torch.isfinite(lg_).all()) for lg_ in step_logits), "non-finite decode logits"
     say(f"[serve] first tokens: {tokens[:, :8].tolist()}")
-    for rec in records.values():
-        rec["launches"] = run_counts[rec["name"]]
+    serve_counts = run_counts
 
     # -- 6. the same prefill with the plain versions -------------------------
     logits_ref, _ = serve_prefill(cfg, params, prompts, max_len, impl="ref")
@@ -297,11 +576,179 @@ def main() -> int:
     assert diff <= logit_bound, (diff, logit_bound)
     assert gap <= logit_bound, (gap, logit_bound)
 
+    del params, caches, logits, logits_ref, step_logits
+    torch.cuda.empty_cache()
+
+    # -- 7. the training path's kernels against their plain versions ---------
+    for dtype in (torch.float32, torch.bfloat16):
+        for shape in ((2, 256, 64), (120, 96)):
+            rms_bwd_case(randn(*shape, dtype=dtype), 1 + 0.1 * randn(shape[-1]),
+                         randn(*shape, dtype=dtype))
+        for B_, H_, KVH_, Sq, Skv, D_, causal, window in FA_TEST_CASES:
+            fa_lse_case(randn(B_, H_, Sq, D_, dtype=dtype), randn(B_, KVH_, Skv, D_, dtype=dtype),
+                        randn(B_, KVH_, Skv, D_, dtype=dtype), causal, window)
+    for B_, H_, KVH_, Sq, Skv, D_, causal, window in FA_TEST_CASES:
+        grad_case_attention(B_, H_, KVH_, Sq, Skv, D_, causal, window)
+    for shape in ((2, 256, 64), (120, 96), (2, 64, 2048)):
+        grad_case_rmsnorm(shape)
+    say("[train-kernels] Function gradients (K4 + chunked backward, K2 + K3) agree with "
+        f"plain autograd at the test shapes in f32 within {GRAD_TOL} / {BWD_TOL}")
+
+    # the training path's shapes (internlm2-1.8b, batch 8 x 1024, bf16)
+    tcfg = get_config("internlm2-1.8b")
+    TB, TS = 8, 1024
+    xt = randn(TB, TS, tcfg.d_model, dtype=torch.bfloat16)
+    wt = 1 + 0.1 * randn(tcfg.d_model)
+    records["rmsnorm_fwd"] = rms_case(xt, wt)
+    dyt = randn(TB, TS, tcfg.d_model, dtype=torch.bfloat16)
+    records["rmsnorm_bwd"] = rms_bwd_case(xt, wt, dyt)
+    del xt, dyt
+    q = randn(TB, tcfg.n_heads, TS, tcfg.hd, dtype=torch.bfloat16)
+    k = randn(TB, tcfg.n_kv_heads, TS, tcfg.hd, dtype=torch.bfloat16)
+    v = randn(TB, tcfg.n_kv_heads, TS, tcfg.hd, dtype=torch.bfloat16)
+    records["flash_attention_fwd"] = fa_lse_case(q, k, v, True, None)
+    flash_bwd_ms = flash_bwd_case(q, k, v)
+    del q, k, v
+    head_bwd_ms = logits_grad_case(
+        randn(TB * TS, tcfg.d_model, dtype=torch.bfloat16),
+        (randn(tcfg.d_model, tcfg.vocab) / math.sqrt(tcfg.d_model)).to(torch.bfloat16))
+    torch.cuda.empty_cache()
+
+    # -- 8. one small f32 train step: card with kernels vs CPU plain ---------
+    train_small_card_vs_cpu()
+
+    # -- 9. train internlm2-1.8b at full width ------------------------------------
+    opt = make_optimizer(OptConfig(lr=3e-4, warmup_steps=2, total_steps=21),
+                         layer_groups=stacked_layer_groups(tcfg))
+    state = make_train_state_fn(tcfg, opt, device=dev, seed=0)()
+    step_fn = make_train_step(tcfg, opt)
+    ds = SyntheticLM(DataConfig(vocab=tcfg.vocab, seq_len=TS, global_batch=TB))
+    n_params = sum(t.numel() for t in tree_leaves(state["params"]))
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    state, m0 = step_fn(state, to_device(ds.batch(0), dev))  # untimed: allocator, cuBLAS
+    losses = [float(m0["loss"])]
+    torch.cuda.synchronize()
+    say(f"[train] internlm2-1.8b bf16 ({n_params / 1e9:.3f} B parameters): first step "
+        f"{time.monotonic() - t0:.3f}s, loss {losses[0]:.4f}")
+    L, R = tcfg.n_layers, sum(remat_layers(tcfg))
+    per_step = {"flash_attention_fwd": L + R, "rmsnorm_fwd": 2 * L + 1 + 2 * R,
+                "rmsnorm_bwd": 2 * L + 1}
+    torch.cuda.reset_peak_memory_stats()
+    step_s, gnorms = [], []
+    reset_launches()
+    for i in range(1, 21):
+        batch = to_device(ds.batch(i), dev)
+        before = dict(LAUNCHES)
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        state, m = step_fn(state, batch)
+        losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        step_s.append(time.monotonic() - t0)
+        gnorms.append(float(m["gnorm"]))
+        got = {n: LAUNCHES[n] - before[n] for n in per_step}
+        assert got == per_step, (i, got, per_step)
+    train_counts = dict(LAUNCHES)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    med = statistics.median(step_s)
+    tokens = TB * TS
+    pairs = visible_pairs(TS, TS, True, None)
+    matmul_params = n_params - tcfg.vocab * tcfg.d_model - (2 * L + 1) * tcfg.d_model
+    model_flops = 6 * matmul_params * tokens + 12 * L * TB * tcfg.n_heads * tcfg.hd * pairs
+    say(f"[train] {name} ({smi}): 20 AdamW steps, batch {TB} x {TS}: median step "
+        f"{med:.4f}s (min {min(step_s):.4f}, max {max(step_s):.4f}), {tokens / med:.0f} "
+        f"tokens/s, peak memory {peak_gib:.2f} GiB, model {model_flops / 1e12:.1f} TFLOP per "
+        f"step = {model_flops / med / 1e12:.1f} TFLOP/s")
+    say(f"[train] step seconds: {[round(t, 4) for t in step_s]}")
+    say(f"[train] losses: {[round(x, 4) for x in losses]}")
+    say(f"[train] gnorms: {[round(x, 4) for x in gnorms]}")
+    say(f"[train] launches over 20 steps: {train_counts}; per step {per_step} "
+        f"(L={L}, remat R={R})")
+    assert train_counts == {n: 20 * c for n, c in per_step.items()}, train_counts
+    assert all(math.isfinite(x) for x in losses), losses
+    assert statistics.mean(losses[-5:]) < statistics.mean(losses[:5]), losses
+    for rec in records.values():
+        rec["launches"] = train_counts[rec["name"]]
+
+    # -- 10. one step's loss and gradients, kernels against plain versions ------
+    batch = to_device(ds.batch(21), dev)
+    paths = [path for path, _ in tree_leaves_with_paths(state["params"])]
+
+    def loss_and_grads(impl):
+        live = map_leaves(lambda t: t.detach().requires_grad_(True), state["params"])
+        loss, _ = loss_fn(tcfg, live, batch, impl=impl)
+        return float(loss.detach()), torch.autograd.grad(loss, tree_leaves(live))
+
+    def dropped_term_bwd(x, w, dy, *, eps):
+        """The rmsnorm backward without dx's x·r³·mean(dy·w·x) term, in plain PyTorch:
+        a fault the leaf-by-leaf bound must catch (phase 10's negative control)."""
+        xf = x.float()
+        r = torch.rsqrt(xf.square().mean(-1, keepdim=True) + eps)
+        dw = (dy.float() * xf * r).reshape(-1, x.shape[-1]).sum(0)
+        return (dy.float() * w.float() * r).to(x.dtype), dw.to(w.dtype)
+
+    def rel_per_leaf(got, want):
+        return [float(torch.linalg.vector_norm(a.float() - b.float())
+                      / torch.linalg.vector_norm(b.float())) for a, b in zip(got, want)]
+
+    def global_norm(grads):  # the optimizer's clip_by_global_norm, without the clip
+        return float(torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in grads)))
+
+    loss_k, g_k = loss_and_grads(None)
+    loss_r, g_r = loss_and_grads("ref")
+    gn_k, gn_r = global_norm(g_k), global_norm(g_r)
+    vs_ref = rel_per_leaf(g_k, g_r)
+    del g_r
+    g_c = loss_and_grads("chunked")[1]
+    vs_chunked = rel_per_leaf(g_k, g_c)
+    del g_k
+    kernel_bwd, ops.rmsnorm_bwd = ops.rmsnorm_bwd, dropped_term_bwd
+    try:
+        fault = rel_per_leaf(loss_and_grads(None)[1], g_c)
+    finally:
+        ops.rmsnorm_bwd = kernel_bwd
+    del g_c, state
+    torch.cuda.empty_cache()
+    kinds = ["/".join(str(k) for k in p if not isinstance(k, int)) for p in paths]
+
+    def by_kind(rel):
+        out = {}
+        for kind, r in zip(kinds, rel):
+            out[kind] = max(out.get(kind, 0.0), r)
+        return {kind: float(f"{r:.3e}") for kind, r in out.items()}
+
+    dl, dg = abs(loss_k - loss_r) / abs(loss_r), abs(gn_k - gn_r) / abs(gn_r)
+    say(f"[train-slice] kernels vs plain, one full-width step from the same state: loss "
+        f"{loss_k:.6f} vs {loss_r:.6f} (rel {dl:.3e}, bound {TRAIN_LOSS_REL_BOUND}); gnorm "
+        f"{gn_k:.6f} vs {gn_r:.6f} (rel {dg:.3e}, bound {TRAIN_GNORM_REL_BOUND})")
+    for label, rel in (("vs ref", vs_ref), ("vs chunked", vs_chunked),
+                       ("negative control vs chunked", fault)):
+        say(f"[train-slice] gradient leaves {label}, |g - g_plain| / |g_plain|, worst by "
+            f"kind: {by_kind(rel)}; median {statistics.median(rel):.3e}")
+    say(f"[train-slice] bounds vs chunked: {TRAIN_GRAD_REL_BOUND} per leaf, "
+        f"{TRAIN_QK_GRAD_REL_BOUND} for attention's wq and wk")
+    assert dl <= TRAIN_LOSS_REL_BOUND and dg <= TRAIN_GNORM_REL_BOUND, (dl, dg)
+    qk = {"layers/mixer/wq", "layers/mixer/wk"}
+    for kind, path, r in zip(kinds, paths, vs_chunked):
+        assert r <= (TRAIN_QK_GRAD_REL_BOUND if kind in qk else TRAIN_GRAD_REL_BOUND), (path, r)
+    assert statistics.median(fault) > TRAIN_GRAD_REL_BOUND, "the leaf bounds miss a K3 fault"
+    say(f"[train] plain chunked flash backward at the training shape: {flash_bwd_ms:.4f} ms "
+        f"per call, {L} calls per step; the head's product backward {head_bwd_ms:.4f} ms, "
+        f"once per step")
+
+    # -- 11. the fault-tolerant loop on the card -------------------------------
+    train_loop_with_crash(dev)
+
     # -- records ---------------------------------------------------------------
+    # times at the training shapes; launches over the 20 timed training steps, and
+    # per path (the serve run of phase 5 and the training run of phase 9)
     kernels_line = [
-        {key: rec[key] for key in ("name", "route", "source", "replaces", "launches",
-                                   "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                                   "library_ms")}
+        {**{key: rec[key] for key in ("name", "route", "source", "replaces", "launches",
+                                      "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                                      "library_ms")},
+         "launches_by_path": {"serve": serve_counts[rec["name"]],
+                              "train": train_counts[rec["name"]]}}
         for rec in records.values()
     ]
     print(json.dumps({"kernels": kernels_line}))
@@ -309,14 +756,6 @@ def main() -> int:
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))
     return 0
-
-
-def _to_device(tree, device):
-    if isinstance(tree, dict):
-        return {k: _to_device(v, device) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [_to_device(v, device) for v in tree]
-    return tree.to(device)
 
 
 if __name__ == "__main__":

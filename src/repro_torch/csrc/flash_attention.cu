@@ -22,6 +22,12 @@
 // and the bf16 ones 113 KB, above the static 48 KB, so the tiles are dynamic shared
 // memory sized from D and the dtype, after cudaFuncSetAttribute.
 //
+// With a non-null `lse` pointer the kernel also writes each row's logsumexp,
+// lse = m + log(l) in the scaled-score units of the reference's chunked twin
+// (src/repro/kernels/ref.py::flash_attention_fwd_lse_chunked): the residual the
+// chunked backward needs, from the m and l the online softmax keeps anyway, so
+// training needs no second attention pass.  Null (serving) writes nothing.
+//
 // Numerics follow the reference: scores, softmax and P·V in f32 (P is kept in f32,
 // not rounded to bf16), the finite mask value -1e30, and the l == 0 guard.  Columns
 // past the end of K are the only ones given -inf, so that they add nothing even to a
@@ -63,8 +69,8 @@ constexpr size_t smem_bytes() {
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
     fa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                  T* __restrict__ o, int H, int KVH, int Sq, int Skv, int causal, int window,
-                  float scale) {
+                  T* __restrict__ o, float* __restrict__ lse, int H, int KVH, int Sq, int Skv,
+                  int causal, int window, float scale) {
   static_assert(D % 16 == 0, "head_dim must be a multiple of 16");
   constexpr int QS = D + RowPad<T>::value;  // row stride of the Q and K tiles
   constexpr int DC = D / 16;                // accumulator columns per thread
@@ -207,12 +213,15 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int dc = 0; dc < DC; ++dc)
       ob[static_cast<size_t>(row) * D + tx + 16 * dc] = from_f32<T>(acc[i][dc] / denom);
+    // the 16 threads of a row hold the same m and l (reduced over tx above)
+    if (lse != nullptr && tx == 0)
+      lse[(static_cast<size_t>(b) * H + h) * Sq + row] = m[i] + logf(denom);
   }
 }
 
 template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int H, int KVH, int Sq,
-           int Skv, int causal, int window, float scale, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o, float* lse, int B, int H,
+           int KVH, int Sq, int Skv, int causal, int window, float scale, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<T, D>();
   cudaError_t err = cudaFuncSetAttribute(
       fa_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
@@ -220,25 +229,25 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int H, i
   const dim3 grid((Sq + BQ - 1) / BQ, H, B);
   fa_fwd_kernel<T, D><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), H, KVH, Sq, Skv, causal, window, scale);
+      static_cast<T*>(o), lse, H, KVH, Sq, Skv, causal, window, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
-int dispatch_head_dim(const void* q, const void* k, const void* v, void* o, int B, int H,
-                      int KVH, int Sq, int Skv, int D, int causal, int window, float scale,
+int dispatch_head_dim(const void* q, const void* k, const void* v, void* o, float* lse, int B,
+                      int H, int KVH, int Sq, int Skv, int D, int causal, int window, float scale,
                       cudaStream_t stream) {
   switch (D) {
     case 16:
-      return launch<T, 16>(q, k, v, o, B, H, KVH, Sq, Skv, causal, window, scale, stream);
+      return launch<T, 16>(q, k, v, o, lse, B, H, KVH, Sq, Skv, causal, window, scale, stream);
     case 32:
-      return launch<T, 32>(q, k, v, o, B, H, KVH, Sq, Skv, causal, window, scale, stream);
+      return launch<T, 32>(q, k, v, o, lse, B, H, KVH, Sq, Skv, causal, window, scale, stream);
     case 64:
-      return launch<T, 64>(q, k, v, o, B, H, KVH, Sq, Skv, causal, window, scale, stream);
+      return launch<T, 64>(q, k, v, o, lse, B, H, KVH, Sq, Skv, causal, window, scale, stream);
     case 128:
-      return launch<T, 128>(q, k, v, o, B, H, KVH, Sq, Skv, causal, window, scale, stream);
+      return launch<T, 128>(q, k, v, o, lse, B, H, KVH, Sq, Skv, causal, window, scale, stream);
     case 256:
-      return launch<T, 256>(q, k, v, o, B, H, KVH, Sq, Skv, causal, window, scale, stream);
+      return launch<T, 256>(q, k, v, o, lse, B, H, KVH, Sq, Skv, causal, window, scale, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -275,19 +284,22 @@ extern "C" long long flash_attention_fwd_smem(int D, int dtype) {
 }
 
 // q, o: (B, H, Sq, D); k, v: (B, KVH, Skv, D); all contiguous with dtype code `dtype`.
+// lse: null, or (B, H, Sq) f32 contiguous, written with each row's logsumexp.
 // window <= 0 means no window.  Launches on `stream` and returns cudaGetLastError().
-extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o, int B,
-                                   int H, int KVH, int Sq, int Skv, int D, int dtype, int causal,
-                                   int window, float scale, void* stream) {
+extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
+                                   void* lse, int B, int H, int KVH, int Sq, int Skv, int D,
+                                   int dtype, int causal, int window, float scale, void* stream) {
   using namespace repro_torch;
   if (B <= 0 || H <= 0 || KVH <= 0 || H % KVH != 0 || Sq <= 0 || Skv <= 0 || B > 65535 ||
       H > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
   if (dtype == kFloat32)
-    return dispatch_head_dim<float>(q, k, v, o, B, H, KVH, Sq, Skv, D, causal, window, scale, s);
+    return dispatch_head_dim<float>(q, k, v, o, l, B, H, KVH, Sq, Skv, D, causal, window, scale,
+                                    s);
   if (dtype == kBFloat16)
-    return dispatch_head_dim<__nv_bfloat16>(q, k, v, o, B, H, KVH, Sq, Skv, D, causal, window,
+    return dispatch_head_dim<__nv_bfloat16>(q, k, v, o, l, B, H, KVH, Sq, Skv, D, causal, window,
                                             scale, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -1,6 +1,6 @@
 """Hand-written Hopper kernels (CUDA C++ in ``csrc/``), each with its plain PyTorch
 version (``ref.py``), a ctypes wrapper with a launch counter, and a public op that
-dispatches by device (``ops.py``)."""
+dispatches by device and carries the gradient (``ops.py``)."""
 
 from . import ref
 from .build import LAUNCHES, reset_launches

@@ -32,7 +32,7 @@ COMPILE_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 DTYPE_CODES = {"float32": 0, "bfloat16": 1}
 
 #: Kernel launches since the last :func:`reset_launches`, by kernel name.
-LAUNCHES: dict[str, int] = {"rmsnorm_fwd": 0, "flash_attention_fwd": 0}
+LAUNCHES: dict[str, int] = {"rmsnorm_fwd": 0, "rmsnorm_bwd": 0, "flash_attention_fwd": 0}
 
 _LIB: ctypes.CDLL | None = None
 #: Seconds the last build took in this process (None: loaded a cached library).
@@ -129,7 +129,13 @@ def load() -> ctypes.CDLL:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.rmsnorm_fwd.argtypes = [p, p, p, ctypes.c_longlong, i, i, f, p]
         lib.rmsnorm_fwd.restype = i
-        lib.flash_attention_fwd.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, i, f, p]
+        lib.rmsnorm_bwd.argtypes = [p, p, p, p, p, ctypes.c_longlong, i, i, i, f, p]
+        lib.rmsnorm_bwd.restype = i
+        lib.rmsnorm_bwd_blocks.argtypes = [ctypes.c_longlong, i, i]
+        lib.rmsnorm_bwd_blocks.restype = i
+        lib.rmsnorm_bwd_max_width.argtypes = []
+        lib.rmsnorm_bwd_max_width.restype = i
+        lib.flash_attention_fwd.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, i, i, f, p]
         lib.flash_attention_fwd.restype = i
         lib.flash_attention_fwd_smem.argtypes = [i, i]
         lib.flash_attention_fwd_smem.restype = ctypes.c_longlong

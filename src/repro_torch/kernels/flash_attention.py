@@ -4,7 +4,8 @@ Port of ``repro.kernels.flash_attention.flash_attention_fwd``.  The plain PyTorc
 version is :func:`repro_torch.kernels.ref.flash_attention_ref`;
 :func:`repro_torch.kernels.ops.flash_attention` chooses between them by device.
 Unlike the TPU kernel, any ``Sq`` and ``Skv`` work: the kernel masks the ragged
-edge itself.
+edge itself.  With ``return_lse`` the kernel also writes each row's logsumexp, the
+residual of the chunked backward (``ref.flash_attention_bwd_chunked``).
 """
 
 from __future__ import annotations
@@ -58,16 +59,23 @@ def flash_attention_fwd(
     causal: bool = False,
     window: int | None = None,
     sm_scale: float | None = None,
-) -> torch.Tensor:
-    """Launch the CUDA kernel.  q: (B, H, Sq, D); k, v: (B, KVH, Skv, D) → (B, H, Sq, D)."""
+    return_lse: bool = False,
+):
+    """Launch the CUDA kernel.  q: (B, H, Sq, D); k, v: (B, KVH, Skv, D) → (B, H, Sq, D).
+
+    With ``return_lse`` returns ``(o, lse)``, lse (B, H, Sq, 1) f32 as the reference's
+    ``flash_attention_fwd_lse_chunked`` gives it: ``m + log(l)`` in scaled-score units
+    (``-1e30`` on a row with no visible column, where the twin has ``log`` of the
+    number of columns; no causal or windowed row is fully masked)."""
     check_args(q, k, v, window)
     if not q.is_cuda:
         raise ValueError(f"flash_attention_fwd launches a CUDA kernel; q lies on {q.device}")
     B, H, Sq, D = q.shape
     KVH, Skv = k.shape[1], k.shape[2]
     o = torch.empty_like(q)
+    lse = torch.empty((B, H, Sq, 1), dtype=torch.float32, device=q.device) if return_lse else None
     if B == 0 or H == 0 or Sq == 0:
-        return o
+        return (o, lse) if return_lse else o
     lib = build.load()
     code = build.DTYPE_CODES[_DTYPES[q.dtype]]
     smem = lib.flash_attention_fwd_smem(D, code)
@@ -81,10 +89,10 @@ def flash_attention_fwd(
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            B, H, KVH, Sq, Skv, D, code, int(bool(causal)),
+            lse.data_ptr() if return_lse else None, B, H, KVH, Sq, Skv, D, code, int(bool(causal)),
             -1 if window is None else int(window), scale, stream,
         )
     if err != 0:
         raise RuntimeError(f"flash_attention_fwd launch failed with CUDA error {err}")
     build.LAUNCHES["flash_attention_fwd"] += 1
-    return o
+    return (o, lse) if return_lse else o

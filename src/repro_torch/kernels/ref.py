@@ -3,7 +3,9 @@
 They are the semantic ground truth the CUDA kernels are held against on the
 card, and what the public ops run for tensors on the CPU.  Each follows its
 counterpart in ``repro.kernels.ref``: same masks, same finite mask value, f32
-accumulation, output in the input dtype.
+accumulation, output in the input dtype.  The chunked attention functions keep the
+reference's ``block_k = 512`` key blocks; its ``lax.scan`` over blocks is a Python
+loop here.
 """
 
 from __future__ import annotations
@@ -67,6 +69,160 @@ def flash_attention_ref(
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bhqk,bhkd->bhqd", p, vf)
     return o.to(q.dtype)
+
+
+def _kv_blocks(k: torch.Tensor, v: torch.Tensor, block_k: int):
+    """k, v in f32, padded with zeros to whole blocks: (nb, padded k, padded v)."""
+    Skv = k.shape[2]
+    nb = -(-Skv // block_k)
+    pad = nb * block_k - Skv
+    kf = torch.nn.functional.pad(k.to(torch.float32), (0, 0, 0, pad))
+    vf = torch.nn.functional.pad(v.to(torch.float32), (0, 0, 0, pad))
+    return nb, kf, vf
+
+
+def _block_mask(Sq: int, Skv: int, bi: int, block_k: int, causal: bool, window: int | None,
+                device: torch.device) -> torch.Tensor:
+    """(Sq, block_k) visibility of key block ``bi``, padding columns masked."""
+    rows = torch.arange(Sq, device=device)[:, None]
+    cols = bi * block_k + torch.arange(block_k, device=device)[None, :]
+    mask = cols < Skv
+    if causal:
+        mask = mask & (rows >= cols)
+    if window is not None:
+        mask = mask & (cols > rows - window)
+    return mask
+
+
+def _chunked_fwd(q, k, v, causal, window, sm_scale, block_k):
+    """The online-softmax forward over key blocks: (acc, m, l) in f32."""
+    B, H, Sq, D = q.shape
+    KVH, Skv = k.shape[1], k.shape[2]
+    group = H // KVH
+    scale = sm_scale if sm_scale is not None else 1.0 / (D**0.5)
+    nb, kf, vf = _kv_blocks(k, v, block_k)
+    qf = q.to(torch.float32) * scale
+    acc = torch.zeros((B, H, Sq, D), dtype=torch.float32, device=q.device)
+    m = torch.full((B, H, Sq, 1), _NEG_INF, dtype=torch.float32, device=q.device)
+    l = torch.zeros((B, H, Sq, 1), dtype=torch.float32, device=q.device)
+    for bi in range(nb):
+        blk = slice(bi * block_k, (bi + 1) * block_k)
+        kr = kf[:, :, blk].repeat_interleave(group, dim=1)
+        vr = vf[:, :, blk].repeat_interleave(group, dim=1)
+        s = torch.einsum("bhqd,bhkd->bhqk", qf, kr)
+        mask = _block_mask(Sq, Skv, bi, block_k, causal, window, q.device)
+        s = s.masked_fill(~mask[None, None], _NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        p = torch.exp(s - m_new)
+        alpha = torch.exp(m - m_new)
+        l = alpha * l + p.sum(dim=-1, keepdim=True)
+        acc = acc * alpha + torch.einsum("bhqk,bhkd->bhqd", p, vr)
+        m = m_new
+    return acc, m, l
+
+
+def flash_attention_ref_chunked(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    causal: bool = False,
+    window: int | None = None,
+    sm_scale: float | None = None,
+    block_k: int = 512,
+) -> torch.Tensor:
+    """Online-softmax attention over key blocks of ``block_k``: O(S·D) live memory
+    instead of the O(S²) scores of :func:`flash_attention_ref`."""
+    acc, _, l = _chunked_fwd(q, k, v, causal, window, sm_scale, block_k)
+    return (acc / torch.where(l == 0.0, torch.ones_like(l), l)).to(q.dtype)
+
+
+def flash_attention_fwd_lse_chunked(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    causal: bool = False,
+    window: int | None = None,
+    sm_scale: float | None = None,
+    block_k: int = 512,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The chunked forward with the row logsumexp the chunked backward needs:
+    (o in q.dtype, lse (B, H, Sq, 1) f32 in scaled-score units)."""
+    acc, m, l = _chunked_fwd(q, k, v, causal, window, sm_scale, block_k)
+    lsafe = torch.where(l == 0.0, torch.ones_like(l), l)
+    return (acc / lsafe).to(q.dtype), m + torch.log(lsafe)
+
+
+def flash_attention_bwd_chunked(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    o: torch.Tensor,
+    lse: torch.Tensor,
+    do: torch.Tensor,
+    causal: bool = False,
+    window: int | None = None,
+    sm_scale: float | None = None,
+    block_k: int = 512,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Chunked flash backward: per key block, recompute p from the saved logsumexp.
+
+        δ_i   = Σ_d do_id·o_id
+        p_ij  = exp(s_ij − lse_i)
+        dv_j  = Σ_i p_ij·do_i
+        ds_ij = p_ij·(do_i·v_j − δ_i)
+        dq_i += scale·Σ_j ds_ij·k_j ;  dk_j = scale·Σ_i ds_ij·q_i
+
+    Returns (dq, dk, dv) in the dtypes of q, k, v."""
+    B, H, Sq, D = q.shape
+    KVH, Skv = k.shape[1], k.shape[2]
+    group = H // KVH
+    scale = sm_scale if sm_scale is not None else 1.0 / (D**0.5)
+    nb, kf, vf = _kv_blocks(k, v, block_k)
+    qf = q.to(torch.float32)
+    dof = do.to(torch.float32)
+    delta = torch.sum(dof * o.to(torch.float32), dim=-1, keepdim=True)
+    dq = torch.zeros((B, H, Sq, D), dtype=torch.float32, device=q.device)
+    dks, dvs = [], []
+    for bi in range(nb):
+        blk = slice(bi * block_k, (bi + 1) * block_k)
+        kr = kf[:, :, blk].repeat_interleave(group, dim=1)
+        vr = vf[:, :, blk].repeat_interleave(group, dim=1)
+        s = torch.einsum("bhqd,bhkd->bhqk", qf, kr) * scale
+        mask = _block_mask(Sq, Skv, bi, block_k, causal, window, q.device)
+        s = s.masked_fill(~mask[None, None], _NEG_INF)
+        p = torch.exp(s - lse)  # masked → 0
+        dv_r = torch.einsum("bhqk,bhqd->bhkd", p, dof)
+        dp = torch.einsum("bhqd,bhkd->bhqk", dof, vr)
+        ds = p * (dp - delta)
+        dq = dq + scale * torch.einsum("bhqk,bhkd->bhqd", ds, kr)
+        dk_r = scale * torch.einsum("bhqk,bhqd->bhkd", ds, qf)
+        # fold the grouped q heads back onto their kv head
+        dks.append(dk_r.reshape(B, KVH, group, block_k, D).sum(dim=2))
+        dvs.append(dv_r.reshape(B, KVH, group, block_k, D).sum(dim=2))
+    dk = torch.cat(dks, dim=2)[:, :, :Skv]
+    dv = torch.cat(dvs, dim=2)[:, :, :Skv]
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def rmsnorm_bwd_ref(
+    x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor, eps: float = 1e-6
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The backward of :func:`rmsnorm_ref`, by the formula of the reference's kernel
+    (``repro/kernels/rmsnorm.py::_bwd_kernel``), with r = rsqrt(mean(x²) + eps):
+
+        dx = r·dy·w − x·r³·mean(dy·w·x)      dw = Σ_rows dy·x·r
+
+    Returns (dx in x.dtype, dw in w.dtype); the math is f32."""
+    D = x.shape[-1]
+    xf = x.to(torch.float32).reshape(-1, D)
+    dyf = dy.to(torch.float32).reshape(-1, D)
+    wf = w.to(torch.float32)
+    r = torch.rsqrt(torch.mean(torch.square(xf), dim=1, keepdim=True) + eps)
+    dyw = dyf * wf
+    proj = torch.sum(dyw * xf, dim=1, keepdim=True) / D
+    dx = r * dyw - xf * (r * r * r) * proj
+    dw = torch.sum(dyf * xf * r, dim=0)
+    return dx.reshape(x.shape).to(x.dtype), dw.to(w.dtype)
 
 
 def rmsnorm_ref(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:

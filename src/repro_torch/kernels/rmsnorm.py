@@ -1,8 +1,9 @@
-"""RMSNorm forward: the wrapper of the CUDA kernel in ``csrc/rmsnorm.cu``.
+"""RMSNorm forward and backward: the wrappers of the CUDA kernels in ``csrc/rmsnorm.cu``.
 
-Port of ``repro.kernels.rmsnorm.rmsnorm_fwd``.  The plain PyTorch version is
-:func:`repro_torch.kernels.ref.rmsnorm_ref`; :func:`repro_torch.kernels.ops.rmsnorm`
-chooses between them by device.
+Ports of ``repro.kernels.rmsnorm.rmsnorm_fwd`` (K2) and ``rmsnorm_bwd`` (K3).  The
+plain PyTorch versions are :func:`repro_torch.kernels.ref.rmsnorm_ref` and
+:func:`repro_torch.kernels.ref.rmsnorm_bwd_ref`; :func:`repro_torch.kernels.ops.rmsnorm`
+chooses between them by device.  Unlike the TPU kernels, any number of rows works.
 """
 
 from __future__ import annotations
@@ -48,3 +49,51 @@ def rmsnorm_fwd(x: torch.Tensor, w: torch.Tensor, *, eps: float = 1e-6) -> torch
         raise RuntimeError(f"rmsnorm_fwd launch failed with CUDA error {err}")
     build.LAUNCHES["rmsnorm_fwd"] += 1
     return y
+
+
+def check_bwd_args(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor) -> None:
+    """What the backward kernel takes: x as the forward does, dy of x's shape and dtype."""
+    check_args(x, w)
+    if dy.shape != x.shape or dy.dtype != x.dtype:
+        raise ValueError(
+            f"dy {tuple(dy.shape)} {dy.dtype} does not match x {tuple(x.shape)} {x.dtype}"
+        )
+    if not dy.is_contiguous():
+        raise ValueError("rmsnorm_bwd needs a contiguous dy")
+    if dy.device != x.device:
+        raise ValueError(f"x is on {x.device} but dy on {dy.device}")
+
+
+def rmsnorm_bwd(
+    x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor, *, eps: float = 1e-6
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Launch the CUDA kernel.  Returns (dx in x's dtype, dw in w's dtype).
+
+    The kernel writes one f32 row of dw partials per block; their sum over blocks
+    is taken here, as the reference sums its per-grid-step partials."""
+    check_bwd_args(x, w, dy)
+    if not x.is_cuda:
+        raise ValueError(f"rmsnorm_bwd launches a CUDA kernel; x lies on {x.device}")
+    D = x.shape[-1]
+    dx = torch.empty_like(x)
+    rows = x.numel() // D if D else 0
+    if rows == 0:
+        return dx, torch.zeros_like(w)
+    lib = build.load()
+    if D > lib.rmsnorm_bwd_max_width():
+        raise ValueError(f"rmsnorm_bwd takes rows of at most {lib.rmsnorm_bwd_max_width()}")
+    code = build.DTYPE_CODES[_DTYPES[x.dtype]]
+    with torch.cuda.device(x.device):
+        blocks = lib.rmsnorm_bwd_blocks(rows, D, code)
+        if blocks <= 0:
+            raise RuntimeError(f"rmsnorm_bwd found no launch configuration for D={D}")
+        dw_part = torch.empty((blocks, D), dtype=torch.float32, device=x.device)
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.rmsnorm_bwd(
+            x.data_ptr(), w.data_ptr(), dy.data_ptr(), dx.data_ptr(), dw_part.data_ptr(),
+            rows, D, blocks, code, float(eps), stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"rmsnorm_bwd launch failed with CUDA error {err}")
+    build.LAUNCHES["rmsnorm_bwd"] += 1
+    return dx, dw_part.sum(dim=0).to(w.dtype)

@@ -1,13 +1,16 @@
 """Model assembly: embedding → layer stack → head, for the dense attention models.
 
-Three execution paths share one parameter dictionary:
+Four execution paths share one parameter dictionary:
 
 * ``forward``      — full-sequence forward (logits).
+* ``loss_fn``      — the training loss on a batch, differentiable by autograd.
 * ``prefill``      — full-sequence forward that also fills the KV caches.
 * ``decode_step``  — single-token step against the caches.
 
 The reference scans over stacked segments of layers (``lax.scan``); here the
-layers are a plain list in depth order and run in a Python loop.
+layers are a plain list in depth order and run in a Python loop.  Where the
+reference rematerialises a scanned segment (``jax.checkpoint``), the port
+checkpoints the same layers (:func:`remat_layers`).
 :func:`repro_torch.models.convert.params_from_jax` unstacks the reference's
 segments into that list.  Parameters: ``{"embed": (V, D), "layers": [...],
 "final_norm": (D,)}`` plus ``"lm_head": (D, V)`` when embeddings are not tied.
@@ -15,9 +18,11 @@ segments into that list.  Parameters: ``{"embed": (V, D), "layers": [...],
 
 from __future__ import annotations
 
+import functools
 from typing import Any
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import kernels
 from repro_torch.device import resolve_device
@@ -25,6 +30,8 @@ from . import layers as L
 from .common import LayerSpec, ModelConfig, apply_rope
 
 Params = dict[str, Any]
+
+_AUX_WEIGHT = 0.01  # MoE load-balance loss weight (no MoE layer is ported yet)
 
 
 def check_supported(spec: LayerSpec) -> None:
@@ -139,6 +146,37 @@ def stack_init(cfg: ModelConfig, gen: torch.Generator, device: torch.device) -> 
     return [layer_init(cfg, spec, gen, device) for spec in cfg.layer_specs()]
 
 
+def _segment_layers(cfg: ModelConfig):
+    """(first layer index, pattern, reps) of each scan segment, in depth order."""
+    start = 0
+    for pattern, reps in cfg.scan_segments():
+        yield start, pattern, reps
+        start += len(pattern) * reps
+
+
+def remat_layers(cfg: ModelConfig) -> list[bool]:
+    """Which layers the reference rematerialises: every layer of a scan segment with
+    ``reps > 1`` when ``cfg.remat`` and ``cfg.scan_layers`` are set (its
+    ``jax.checkpoint`` wraps the scan body), and no trailing ``reps == 1`` layer."""
+    out = []
+    for _, pattern, reps in _segment_layers(cfg):
+        out += [cfg.remat and cfg.scan_layers and reps > 1] * (len(pattern) * reps)
+    return out
+
+
+def stacked_layer_groups(cfg: ModelConfig) -> list[list[int]]:
+    """The layers whose parameters the reference stacks into one leaf: for each scan
+    segment with ``reps > 1`` and each position in its pattern, the indices of that
+    position's layer in every repetition.  (An optimizer that takes a statistic over
+    a whole leaf, as Adafactor's update clip does, takes it over such a group.)"""
+    groups = []
+    for start, pattern, reps in _segment_layers(cfg):
+        if reps > 1:
+            k = len(pattern)
+            groups += [[start + r * k + i for r in range(reps)] for i in range(k)]
+    return groups
+
+
 def stack_apply(
     cfg: ModelConfig,
     layers: list[Params],
@@ -147,8 +185,16 @@ def stack_apply(
     *,
     impl: str | None = None,
 ) -> torch.Tensor:
-    for spec, lp in zip(cfg.layer_specs(), layers, strict=True):
-        x = layer_apply(cfg, spec, lp, x, positions, impl=impl)
+    """The layers in depth order.  With autograd recording, the layers of
+    :func:`remat_layers` keep only their input and rerun their forward in the
+    backward (``torch.utils.checkpoint``), as the reference's remat does."""
+    remat = remat_layers(cfg) if torch.is_grad_enabled() else [False] * len(layers)
+    for spec, lp, rm in zip(cfg.layer_specs(), layers, remat, strict=True):
+        fn = functools.partial(layer_apply, cfg, spec, lp, impl=impl)
+        if rm:
+            x = checkpoint(fn, x, positions, use_reentrant=False, preserve_rng_state=False)
+        else:
+            x = fn(x, positions)
     return x
 
 
@@ -218,13 +264,50 @@ def _embed(cfg: ModelConfig, p: Params, tokens: torch.Tensor) -> torch.Tensor:
     return x
 
 
-def _matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """a @ b with exact products, f32 accumulation and an f32 result: the reference's
-    ``preferred_element_type=float32``.  On the card a bf16 GEMM writes f32 directly;
-    elsewhere the operands are widened to f32, which gives the same exact products."""
-    if a.is_cuda and a.dtype != torch.float32:
+def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b of two bf16 matrices with exact products, f32 accumulation and an f32
+    result.  On the card a bf16 GEMM writes f32 directly; elsewhere the operands are
+    widened to f32, which gives the same exact products."""
+    if a.is_cuda:
         return torch.mm(a, b, out_dtype=torch.float32)
     return a.to(torch.float32) @ b.to(torch.float32)
+
+
+class _MatmulF32(torch.autograd.Function):
+    """The product of :func:`_mm_f32` and its gradient.
+
+    The reference's transpose multiplies the f32 cotangent by the bf16 operands and
+    casts ``da`` and ``db`` to the operands' dtype.  Here the cotangent is split into
+    two bf16 parts, ``g = hi + lo`` up to 2^-17 relative, and each product is the sum
+    of two bf16 products with f32 results: the f32 cotangent's precision with the
+    tensor cores doing the work.  (Torch's f32-output ``mm`` has no backward.)"""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        return _mm_f32(a, b)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        hi = g.to(a.dtype)
+        lo = (g - hi.to(g.dtype)).to(a.dtype)
+        da = db = None
+        if ctx.needs_input_grad[0]:
+            bt = b.t()
+            da = (_mm_f32(hi, bt) + _mm_f32(lo, bt)).to(a.dtype)
+        if ctx.needs_input_grad[1]:
+            at = a.t()
+            db = (_mm_f32(at, hi) + _mm_f32(at, lo)).to(b.dtype)
+        return da, db
+
+
+def _matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b with exact products, f32 accumulation and an f32 result: the reference's
+    ``preferred_element_type=float32``."""
+    if a.dtype != torch.float32:
+        return _MatmulF32.apply(a, b)
+    return a @ b.to(torch.float32)
 
 
 def _logits(cfg: ModelConfig, p: Params, x: torch.Tensor, *, impl: str | None = None):
@@ -246,6 +329,23 @@ def forward(
     x = _embed(cfg, p, tokens)
     x = stack_apply(cfg, p["layers"], x, pos, impl=impl)
     return _logits(cfg, p, x, impl=impl)
+
+
+def loss_fn(
+    cfg: ModelConfig, p: Params, batch: dict, *, impl: str | None = None
+) -> tuple[torch.Tensor, dict]:
+    """Mean next-token cross-entropy on ``batch`` (``tokens``, ``labels``: (B, S) int).
+
+    Returns ``(loss, {"nll", "aux"})`` as the reference does; ``aux``, the MoE
+    load-balance loss, is a zero f32 scalar for the dense layers ported here."""
+    logits = forward(cfg, p, batch["tokens"], impl=impl)
+    labels = batch["labels"].long()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None])[..., 0]
+    nll = torch.mean(logz - gold)
+    aux = torch.zeros((), dtype=torch.float32, device=logits.device)
+    loss = nll + _AUX_WEIGHT * aux
+    return loss, {"nll": nll, "aux": aux}
 
 
 def cache_init(

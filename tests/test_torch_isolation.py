@@ -33,6 +33,8 @@ def test_port_files_exist():
     assert "chip_smoke.py" in names
     assert "src/repro_torch/models/model.py" in names
     assert "src/repro_torch/launch/serve.py" in names
+    assert "src/repro_torch/launch/train.py" in names
+    assert "src/repro_torch/optim/__init__.py" in names
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: p.relative_to(ROOT).as_posix())
@@ -52,6 +54,9 @@ def test_importing_the_port_loads_no_jax():
         "import repro_torch, repro_torch.configs, repro_torch.models, repro_torch.kernels\n"
         "import repro_torch.models.convert, repro_torch.launch.serve\n"
         "import repro_torch.kernels.build, repro_torch.kernels.ops\n"
+        "import repro_torch.tree, repro_torch.optim, repro_torch.data, repro_torch.checkpoint\n"
+        "import repro_torch.runtime, repro_torch.distributed, repro_torch.launch.train\n"
+        "import repro_torch.launch.profile_train, repro_torch.launch.profile_serve\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "assert not bad, bad\n"
         "print('ok')\n"

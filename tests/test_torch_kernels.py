@@ -11,6 +11,9 @@ in another order) and 2e-2 in bf16 (outputs rounded to bf16, 8 bits of mantissa,
 after f32 math).
 """
 
+import functools
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -18,6 +21,8 @@ import torch
 
 from repro.kernels import ref as jref
 from repro.kernels.flash_attention import flash_attention_fwd as jax_flash_attention_fwd
+from repro import kernels as jkernels
+from repro.kernels.rmsnorm import rmsnorm_bwd as jax_rmsnorm_bwd
 from repro.kernels.rmsnorm import rmsnorm_fwd as jax_rmsnorm_fwd
 from repro_torch import kernels
 from repro_torch.kernels import build, ops
@@ -25,7 +30,8 @@ from repro_torch.kernels import ref as tref
 from repro_torch.kernels.flash_attention import check_args as fa_check_args
 from repro_torch.kernels.flash_attention import flash_attention_fwd
 from repro_torch.kernels.rmsnorm import check_args as rms_check_args
-from repro_torch.kernels.rmsnorm import rmsnorm_fwd
+from repro_torch.kernels.rmsnorm import check_bwd_args as rms_check_bwd_args
+from repro_torch.kernels.rmsnorm import rmsnorm_bwd, rmsnorm_fwd
 from test_torch_kernels_cuda import FA_CASES, make_qkv
 
 DTYPES = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.bfloat16)}
@@ -116,7 +122,7 @@ def test_cpu_dispatch_runs_plain_versions_and_launches_nothing():
     kernels.reset_launches()
     o = kernels.flash_attention(q, k, v, causal=True)
     y = kernels.rmsnorm(q, torch.ones(32))
-    assert kernels.LAUNCHES == {"rmsnorm_fwd": 0, "flash_attention_fwd": 0}
+    assert kernels.LAUNCHES == {"rmsnorm_fwd": 0, "rmsnorm_bwd": 0, "flash_attention_fwd": 0}
     torch.testing.assert_close(o, tref.flash_attention_ref(q, k, v, causal=True), rtol=0, atol=0)
     torch.testing.assert_close(y, tref.rmsnorm_ref(q, torch.ones(32)), rtol=0, atol=0)
     # impl="ref" is the plain version on any device
@@ -129,6 +135,10 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         flash_attention_fwd(q, q, q)
     with pytest.raises(ValueError, match="CUDA kernel"):
         rmsnorm_fwd(q, torch.ones(32))
+    with pytest.raises(ValueError, match="CUDA kernel"):
+        rmsnorm_bwd(q, torch.ones(32), q)
+    with pytest.raises(ValueError, match="CUDA kernel"):
+        flash_attention_fwd(q, q, q, return_lse=True)
     with pytest.raises(ValueError, match="impl must be one of"):
         ops.rmsnorm(q, torch.ones(32), impl="pallas")
     with pytest.raises(ValueError, match="impl must be one of"):
@@ -206,3 +216,187 @@ def test_library_name_follows_the_sources(tmp_path, monkeypatch):
 def test_sources_are_the_kernels_of_this_slice():
     names = {p.name for p in build.sources()}
     assert {"rmsnorm.cu", "flash_attention.cu", "common.cuh"} <= names
+
+
+# ---------------------------------------------------------------------------
+# the training path: K3's plain version, the chunked attention, and gradients
+# ---------------------------------------------------------------------------
+
+# The rmsnorm backward's tolerance of tests/kernels/test_rmsnorm.py: 1e-4/1e-5 (dw
+# sums the rows in another order).  bf16 dx is rounded to bf16 from f32 results
+# that may straddle a rounding boundary, so it takes the bf16 tolerance.
+BWD_TOL = dict(rtol=1e-4, atol=1e-5)
+# attention gradients, as tests/kernels/test_flash_attention.py holds them
+GRAD_TOL = dict(rtol=2e-4, atol=2e-4)
+
+# the cases of the kernel tests, plus a ragged causal, windowed case (Sq != Skv)
+CHUNKED_CASES = {name: c[:8] for name, c in FA_CASES.items()}
+CHUNKED_CASES["ragged_causal_window"] = (2, 4, 2, 37, 70, 64, True, 16)
+
+
+@pytest.fixture(params=["ref", "pallas_interpret"])
+def jax_mode(request):
+    """The reference's kernel mode for one test, restored afterwards (xdist workers
+    are shared across files)."""
+    old = jkernels.get_kernel_mode()
+    jkernels.set_kernel_mode(request.param)
+    try:
+        yield request.param
+    finally:
+        jkernels.set_kernel_mode(old)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(2, 256, 64), (120, 96)])
+def test_rmsnorm_bwd_ref_matches_pallas_interpret(dtype, shape):
+    rs = np.random.RandomState(1)
+    x_np = rs.randn(*shape).astype(np.float32)
+    dy_np = rs.randn(*shape).astype(np.float32)
+    w_np = (1.0 + 0.1 * rs.randn(shape[-1])).astype(np.float32)
+    (xj, xt), (dyj, dyt) = both(x_np, dtype), both(dy_np, dtype)
+    wj, wt = jnp.asarray(w_np), torch.from_numpy(w_np)
+    dx, dw = tref.rmsnorm_bwd_ref(xt, wt, dyt, 1e-6)
+    assert dx.dtype == xt.dtype and dw.dtype == torch.float32
+    want_dx, want_dw = jax_rmsnorm_bwd(xj, wj, dyj, eps=1e-6, interpret=True)
+    np.testing.assert_allclose(f32(dx), f32(want_dx), **(BWD_TOL if dtype == "float32" else
+                                                           TOL["bfloat16"]))
+    np.testing.assert_allclose(f32(dw), f32(want_dw), **BWD_TOL)
+
+
+@pytest.mark.parametrize("impl", [None, "ref"])
+def test_rmsnorm_gradient_matches_reference_vjp(jax_mode, impl):
+    """autograd through ops.rmsnorm (on the CPU: the Function with K2's and K3's plain
+    versions, or plain autograd with impl="ref") against jax.vjp of the reference op."""
+    rs = np.random.RandomState(2)
+    x_np = rs.randn(3, 40, 96).astype(np.float32)
+    w_np = (1.0 + 0.1 * rs.randn(96)).astype(np.float32)
+    g_np = rs.randn(3, 40, 96).astype(np.float32)
+    y, vjp = jax.vjp(lambda x, w: jkernels.rmsnorm(x, w, eps=1e-6), jnp.asarray(x_np),
+                     jnp.asarray(w_np))
+    want = vjp(jnp.asarray(g_np))
+    x = torch.from_numpy(x_np).requires_grad_(True)
+    w = torch.from_numpy(w_np).requires_grad_(True)
+    out = ops.rmsnorm(x, w, eps=1e-6, impl=impl)
+    got = torch.autograd.grad(out, (x, w), torch.from_numpy(g_np))
+    np.testing.assert_allclose(f32(out.detach()), f32(y), **TOL["float32"])
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(f32(a), f32(b), **BWD_TOL)
+
+
+def _chunked_inputs(case, seed=3):
+    B, H, KVH, Sq, Skv, D, causal, window = CHUNKED_CASES[case]
+    q, k, v = make_qkv(seed, B, H, KVH, Sq, Skv, D)
+    do = np.random.RandomState(seed + 1).randn(B, H, Sq, D).astype(np.float32)
+    return (q, k, v, do), causal, window
+
+
+@pytest.mark.parametrize("case", sorted(CHUNKED_CASES))
+def test_chunked_forward_and_lse_match_reference(case):
+    """o and lse of the chunked twin, f32.  lse is compared on rows with a visible
+    column (all rows here): on a fully masked row the twin has log(columns)."""
+    (q, k, v, _), causal, window = _chunked_inputs(case)
+    o, lse = tref.flash_attention_fwd_lse_chunked(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v), causal=causal,
+        window=window,
+    )
+    want_o, want_lse = jref.flash_attention_fwd_lse_chunked(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal, window=window
+    )
+    visible = np.asarray(jref.attention_mask(q.shape[2], k.shape[2], causal=causal,
+                                             window=window)).any(-1)
+    assert visible.all() and lse.shape == want_lse.shape
+    np.testing.assert_allclose(f32(o), f32(want_o), **TOL["float32"])
+    np.testing.assert_allclose(f32(lse)[:, :, visible], f32(want_lse)[:, :, visible],
+                               **TOL["float32"])
+    plain = tref.flash_attention_ref_chunked(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v), causal=causal,
+        window=window,
+    )
+    np.testing.assert_allclose(f32(plain), f32(want_o), **TOL["float32"])
+
+
+@pytest.mark.parametrize("case", sorted(CHUNKED_CASES))
+def test_chunked_backward_matches_reference(case):
+    (q, k, v, do), causal, window = _chunked_inputs(case)
+    o, lse = jref.flash_attention_fwd_lse_chunked(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal, window=window
+    )
+    want = jref.flash_attention_bwd_chunked(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), o, lse, jnp.asarray(do),
+        causal=causal, window=window,
+    )
+    got = tref.flash_attention_bwd_chunked(
+        *(torch.from_numpy(a) for a in (q, k, v, np.array(o), np.array(lse), do)),
+        causal=causal, window=window,
+    )
+    for a, b in zip(got, want):
+        assert a.shape == b.shape
+        np.testing.assert_allclose(f32(a), f32(b), **GRAD_TOL)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_attention_vjp(mode, case):
+    """(dq, dk, dv) of the reference op in ``mode`` (set by the caller's fixture), on
+    the inputs of ``test_attention_gradient_matches_reference``; cached, since both
+    of the port's impls are held against one reference run."""
+    assert jkernels.get_kernel_mode() == mode
+    B, H, KVH, Sq, Skv, D, causal, window, _, _ = FA_CASES[case]
+    q, k, v = make_qkv(11, B, H, KVH, Sq, Skv, D)
+    g = np.random.RandomState(12).randn(B, H, Sq, D).astype(np.float32)
+    _, vjp = jax.vjp(
+        lambda a, b, c: jkernels.flash_attention(a, b, c, causal=causal, window=window),
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+    )
+    return tuple(np.asarray(x) for x in vjp(jnp.asarray(g)))
+
+
+@pytest.mark.parametrize("impl", [None, "chunked"])
+@pytest.mark.parametrize("case", sorted(FA_CASES))
+def test_attention_gradient_matches_reference(jax_mode, impl, case):
+    """autograd through ops.flash_attention against jax.grad of the reference op in
+    its mode: impl="chunked" is the Function (chunked forward with lse, chunked
+    backward); impl=None on the CPU is plain autograd through the full softmax."""
+    B, H, KVH, Sq, Skv, D, causal, window, _, _ = FA_CASES[case]
+    q, k, v = make_qkv(11, B, H, KVH, Sq, Skv, D)
+    g = np.random.RandomState(12).randn(B, H, Sq, D).astype(np.float32)
+    want = _jax_attention_vjp(jax_mode, case)
+    qt, kt, vt = (torch.from_numpy(a).requires_grad_(True) for a in (q, k, v))
+    o = ops.flash_attention(qt, kt, vt, causal=causal, window=window, impl=impl)
+    got = torch.autograd.grad(o, (qt, kt, vt), torch.from_numpy(g))
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(f32(a), f32(b), **GRAD_TOL)
+
+
+def test_ops_without_grad_run_the_forward_alone():
+    """No operand requires a gradient (or grad mode is off): the chunked forward
+    without lse, and nothing saved."""
+    q, k, v = (torch.from_numpy(a) for a in make_qkv(1, 1, 2, 1, 16, 16, 32))
+    o = ops.flash_attention(q, k, v, causal=True, impl="chunked")
+    assert o.grad_fn is None
+    torch.testing.assert_close(o, tref.flash_attention_ref_chunked(q, k, v, causal=True),
+                               rtol=0, atol=0)
+    qg = q.clone().requires_grad_(True)
+    with torch.no_grad():
+        assert ops.flash_attention(qg, k, v, causal=True, impl="chunked").grad_fn is None
+        assert ops.rmsnorm(qg, torch.ones(32)).grad_fn is None
+    assert type(ops.flash_attention(qg, k, v, causal=True, impl="chunked").grad_fn).__name__ \
+        == "_FlashAttentionBackward"
+    assert type(ops.rmsnorm(qg, torch.ones(32)).grad_fn).__name__ == "_RMSNormBackward"
+
+
+@pytest.mark.parametrize(
+    "x,w,dy,error",
+    [
+        (torch.zeros(4, 8), torch.ones(8), torch.zeros(4, 8), None),
+        (torch.zeros(4, 8), torch.ones(8), torch.zeros(4, 8, dtype=torch.bfloat16), "match"),
+        (torch.zeros(4, 8), torch.ones(8), torch.zeros(8, 4).T, "contiguous"),
+        (torch.zeros(4, 8), torch.ones(8), torch.zeros(4, 9), "match"),
+        (torch.zeros(4, 8), torch.ones(8, dtype=torch.bfloat16), torch.zeros(4, 8), "weight"),
+    ],
+)
+def test_rmsnorm_bwd_argument_checks(x, w, dy, error):
+    if error is None:
+        rms_check_bwd_args(x, w, dy)
+    else:
+        with pytest.raises((ValueError, TypeError), match=error):
+            rms_check_bwd_args(x, w, dy)

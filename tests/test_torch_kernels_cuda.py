@@ -7,8 +7,12 @@ This file imports no JAX, so it runs on the GPU machine:
 Without a CUDA device every test skips.  The shapes are the cases of
 ``tests/kernels/test_flash_attention.py`` (shared with ``test_torch_kernels.py``),
 ragged edges the TPU kernel's tiling could not take, and the rmsnorm shapes of
-the gemma3-1b serving path.  Tolerances: 2e-5 in f32 (the same f32 math summed in
-another order), 2e-2 in bf16 (outputs rounded to bf16 after f32 math).
+the gemma3-1b serving path and the internlm2-1.8b training path.  Tolerances: 2e-5
+in f32 (the same f32 math summed in another order), 2e-2 in bf16 (outputs rounded
+to bf16 after f32 math); the rmsnorm backward takes 1e-4/1e-5, as
+``tests/kernels/test_rmsnorm.py`` does (dw sums thousands of rows in another
+order), and attention gradients 2e-4, as ``tests/kernels/test_flash_attention.py``
+does.
 """
 
 import numpy as np
@@ -16,12 +20,25 @@ import pytest
 import torch
 
 from repro_torch import kernels
+from repro_torch.kernels import ops
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels.flash_attention import flash_attention_fwd
-from repro_torch.kernels.rmsnorm import rmsnorm_fwd
+from repro_torch.kernels.rmsnorm import rmsnorm_bwd, rmsnorm_fwd
+from repro_torch.models import model as tmodel
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 TOL = {"float32": dict(rtol=2e-5, atol=2e-5), "bfloat16": dict(rtol=2e-2, atol=2e-2)}
+BWD_TOL = dict(rtol=1e-4, atol=1e-5)
+GRAD_TOL = dict(rtol=2e-4, atol=2e-4)
+
+
+def assert_dw_close(got, want, x, w, dy):
+    """dw sums every row in another order than the plain version: the f32 error of a
+    sum grows with the sum of the magnitudes of its terms (about log2(rows)·ε·Σ|term|
+    for a tree sum), so the bound is 1e-6·Σ_rows|dy·x·r| (about 17 ε) plus 1e-5."""
+    mag = f32(tref.rmsnorm_bwd_ref(x.abs(), w, dy.abs())[1])  # Σ|dy|·|x|·r, r unchanged
+    err = np.abs(f32(got) - f32(want))
+    assert (err <= 1e-5 + 1e-6 * mag).all(), (err.max(), (err / (1e-5 + 1e-6 * mag)).max())
 
 # name: (B, H, KVH, Sq, Skv, D, causal, window, block_q, block_k); the blocks are
 # the reference kernel's tiling, used where it runs in interpret mode
@@ -94,3 +111,118 @@ def test_rmsnorm_kernel_matches_plain(cuda, dtype, shape):
     got = rmsnorm_fwd(x, w)
     assert kernels.LAUNCHES["rmsnorm_fwd"] == before + 1
     np.testing.assert_allclose(f32(got), f32(tref.rmsnorm_ref(x, w)), **TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize(
+    "shape", [(2, 256, 64), (120, 96), (8, 1024, 2048), (4, 1024, 1152), (3, 5000), (1, 1)]
+)
+def test_rmsnorm_bwd_kernel_matches_plain(cuda, dtype, shape):
+    rs = np.random.RandomState(1)
+    x = torch.from_numpy(rs.randn(*shape).astype(np.float32)).to(cuda, DTYPES[dtype])
+    dy = torch.from_numpy(rs.randn(*shape).astype(np.float32)).to(cuda, DTYPES[dtype])
+    w = torch.from_numpy((1.0 + 0.1 * rs.randn(shape[-1])).astype(np.float32)).to(cuda)
+    before = kernels.LAUNCHES["rmsnorm_bwd"]
+    dx, dw = rmsnorm_bwd(x, w, dy)
+    assert kernels.LAUNCHES["rmsnorm_bwd"] == before + 1
+    assert dx.dtype == x.dtype and dx.shape == x.shape and dw.dtype == torch.float32
+    want_dx, want_dw = tref.rmsnorm_bwd_ref(x, w, dy)
+    tol = BWD_TOL if dtype == "float32" else TOL["bfloat16"]
+    np.testing.assert_allclose(f32(dx), f32(want_dx), **tol)
+    assert_dw_close(dw, want_dw, x, w, dy)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", sorted(FA_CASES))
+def test_flash_attention_kernel_lse_matches_chunked_twin(cuda, case, dtype):
+    """K4's logsumexp on every row with a visible column (all rows of these cases;
+    a fully masked row would hold -1e30 here and log(columns) in the twin)."""
+    B, H, KVH, Sq, Skv, D, causal, window, _, _ = FA_CASES[case]
+    q, k, v = (
+        torch.from_numpy(a).to(cuda, DTYPES[dtype]) for a in make_qkv(5, B, H, KVH, Sq, Skv, D)
+    )
+    o, lse = flash_attention_fwd(q, k, v, causal=causal, window=window, return_lse=True)
+    want_o, want_lse = tref.flash_attention_fwd_lse_chunked(q, k, v, causal=causal, window=window)
+    assert lse.shape == (B, H, Sq, 1) and lse.dtype == torch.float32
+    visible = tref.attention_mask(Sq, Skv, causal=causal, window=window, device=cuda).any(-1)
+    assert bool(visible.all())
+    np.testing.assert_allclose(f32(o), f32(want_o), **TOL[dtype])
+    np.testing.assert_allclose(f32(lse[:, :, visible]), f32(want_lse[:, :, visible]),
+                               **TOL["float32"])
+    # without return_lse the output is the same
+    np.testing.assert_array_equal(
+        f32(flash_attention_fwd(q, k, v, causal=causal, window=window)), f32(o)
+    )
+
+
+@pytest.mark.parametrize("case", sorted(FA_CASES))
+def test_flash_attention_function_gradients(cuda, case):
+    """K4 forward + the chunked backward against plain autograd (impl="ref"), f32."""
+    B, H, KVH, Sq, Skv, D, causal, window, _, _ = FA_CASES[case]
+    arrays = make_qkv(6, B, H, KVH, Sq, Skv, D)
+    g = torch.from_numpy(np.random.RandomState(7).randn(B, H, Sq, D).astype(np.float32)).to(cuda)
+    grads = {}
+    for impl in (None, "chunked", "ref"):
+        q, k, v = (torch.from_numpy(a).to(cuda).requires_grad_(True) for a in arrays)
+        before = kernels.LAUNCHES["flash_attention_fwd"]
+        o = ops.flash_attention(q, k, v, causal=causal, window=window, impl=impl)
+        launched = kernels.LAUNCHES["flash_attention_fwd"] - before
+        assert launched == (1 if impl is None else 0)
+        grads[impl] = torch.autograd.grad(o, (q, k, v), g)
+    for impl in (None, "chunked"):
+        for a, b in zip(grads[impl], grads["ref"]):
+            np.testing.assert_allclose(f32(a), f32(b), **GRAD_TOL)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(2, 256, 64), (120, 96), (2, 64, 2048)])
+def test_rmsnorm_function_gradients(cuda, dtype, shape):
+    """K2 forward + K3 backward against plain autograd (impl="ref")."""
+    rs = np.random.RandomState(2)
+    xs = rs.randn(*shape).astype(np.float32)
+    ws = (1.0 + 0.1 * rs.randn(shape[-1])).astype(np.float32)
+    g = torch.from_numpy(rs.randn(*shape).astype(np.float32)).to(cuda, DTYPES[dtype])
+    grads = {}
+    for impl in (None, "ref"):
+        x = torch.from_numpy(xs).to(cuda, DTYPES[dtype]).requires_grad_(True)
+        w = torch.from_numpy(ws).to(cuda).requires_grad_(True)
+        before = dict(kernels.LAUNCHES)
+        y = ops.rmsnorm(x, w, impl=impl)
+        grads[impl] = torch.autograd.grad(y, (x, w), g)
+        n = 1 if impl is None else 0
+        assert kernels.LAUNCHES["rmsnorm_fwd"] == before["rmsnorm_fwd"] + n
+        assert kernels.LAUNCHES["rmsnorm_bwd"] == before["rmsnorm_bwd"] + n
+    tol = BWD_TOL if dtype == "float32" else TOL["bfloat16"]
+    np.testing.assert_allclose(f32(grads[None][0]), f32(grads["ref"][0]), **tol)
+    # dw is an f32 sum over rows in both, from the same values
+    x = torch.from_numpy(xs).to(cuda, DTYPES[dtype])
+    w = torch.from_numpy(ws).to(cuda)
+    assert_dw_close(grads[None][1], grads["ref"][1], x, w, g)
+
+
+def test_bf16_logits_product_and_its_gradient(cuda):
+    """The f32-output bf16 product of the logits and its backward, against f64 math
+    on the same bf16 values.  The cotangent is a cross-entropy's (softmax minus
+    one-hot), whose sums cancel; the gradients are rounded once to bf16 from f32
+    sums, so each must lie within one bf16 ulp (2^-7 relative) plus 1e-5 of the
+    largest entry of the f64 product of the f32 cotangent.  (Rounding the cotangent
+    to bf16 first is off by ~5e-2 relative.)  The product: 1e-5 relative plus 1e-4."""
+    rs = np.random.RandomState(8)
+    N, V = 64, 1000
+    a = torch.from_numpy(rs.randn(N, 256).astype(np.float32)).to(cuda, torch.bfloat16)
+    b = torch.from_numpy(rs.randn(256, V).astype(np.float32) / 16).to(cuda, torch.bfloat16)
+    a.requires_grad_(True)
+    b.requires_grad_(True)
+    y = tmodel._matmul_f32(a, b)
+    assert y.dtype == torch.float32
+    g = torch.softmax(y.detach(), -1)
+    g[torch.arange(N, device=cuda), torch.from_numpy(rs.randint(0, V, N)).to(cuda)] -= 1.0
+    g /= N
+    da, db = torch.autograd.grad(y, (a, b), g)
+    y = y.detach()
+    assert da.dtype == db.dtype == torch.bfloat16
+    ad, bd, gd = a.detach().double(), b.detach().double(), g.double()
+    np.testing.assert_allclose(f32(y), f32(ad @ bd), rtol=1e-5, atol=1e-4)
+    for got, ex in ((da, gd @ bd.T), (db, ad.T @ gd)):
+        got, ex = f32(got), ex.cpu().numpy()
+        assert (np.abs(got - ex) <= 2**-7 * np.abs(ex) + 1e-5 * np.abs(ex).max()).all()

@@ -139,12 +139,14 @@ def test_main_path_hands_kernels_what_they_take(checked_kernels, dtype):
     params = init_params(cfg, seed=0, device="cpu")
     prompts = serve.make_prompts(cfg, B, P, torch.device("cpu"))
     logits, caches = serve.serve_prefill(cfg, params, prompts, P + GEN)
-    assert LAUNCHES == {"flash_attention_fwd": L, "rmsnorm_fwd": 2 * L + 1}
+    assert LAUNCHES == {"flash_attention_fwd": L, "rmsnorm_fwd": 2 * L + 1, "rmsnorm_bwd": 0}
     reset_launches()
     toks, kept = serve.serve_decode(cfg, params, logits, caches, P, GEN, keep_logits=True)
-    assert LAUNCHES == {"flash_attention_fwd": 0, "rmsnorm_fwd": (2 * L + 1) * GEN}
+    assert LAUNCHES == {
+        "flash_attention_fwd": 0, "rmsnorm_fwd": (2 * L + 1) * GEN, "rmsnorm_bwd": 0
+    }
     assert all(bool(torch.isfinite(k).all()) and k.dtype == torch.float32 for k in kept)
     # impl="ref" reaches no kernel
     reset_launches()
     serve.serve_prefill(cfg, params, prompts, P + GEN, impl="ref")
-    assert LAUNCHES == {"flash_attention_fwd": 0, "rmsnorm_fwd": 0}
+    assert LAUNCHES == {"flash_attention_fwd": 0, "rmsnorm_fwd": 0, "rmsnorm_bwd": 0}
