@@ -31,7 +31,20 @@ Drives ``repro_torch`` only (never ``repro`` or ``jax``), on one CUDA device:
     norm and every gradient leaf;
 11. runs the fault-tolerant loop (``repro_torch.runtime.train_loop``) on the
     reduced internlm2 config in bf16 with checkpoints, one injected crash, resume
-    and replay.
+    and replay;
+12. holds the SSD scan kernel (K5) against the stepwise recurrence on the card, y
+    and the final state, at the test shapes (a ragged sequence and G > 1 among
+    them) and at the mamba2-370m serving shape, and times the kernel and the plain
+    stepwise and chunked versions;
+13. checks the Mamba slice on mamba2-reduced in f32: prefill and 4 decode steps,
+    the card with its kernels against the CPU with the plain versions;
+14. serves mamba2-370m at full width in bf16 (random weights from a seed): batch 4,
+    prompt 1024, 32 greedy tokens, through ``repro_torch.launch.serve``, counting
+    the kernel launches of the prefill and of every decode step;
+15. runs the same prefill with the plain versions and compares the logits, in bf16
+    and with the same weights widened to f32;
+16. holds the gradients of the SSD op's autograd Function (K5 forward, plain
+    chunked backward) against plain autograd through the stepwise recurrence.
 
 A failed phase raises and the script exits non-zero.  The last lines are the
 kernels' record, the card's name and power limit, and the device line.
@@ -92,6 +105,34 @@ TRAIN_QK_GRAD_REL_BOUND = 0.25
 # repeated rows in another order.  Replayed bf16 losses must agree within 1e-3.
 REPLAY_REL_BOUND = 1e-3
 
+# The SSD scan (K5) against the stepwise recurrence, as tests/kernels/test_ssd_scan.py
+# holds the chunked kernel (the chunk's decays are differences of a cumsum, not
+# products of per-step factors); the f32 state at the same bound in both dtypes.
+SSD_TOL = dict(rtol=2e-4, atol=2e-4)
+
+# mamba2-370m prefill through 48 layers, kernels against plain versions, relative to
+# the largest plain logit.  In f32 the two differ only where K5's chunked sums take
+# another order than the stepwise recurrence (the chunk's decays are differences of
+# a cumsum): the plain chunked and stepwise versions, with no kernel between them,
+# are 4.1e-5 apart on these weights (CPU, batch 1, prompt 1024), and the bound sits
+# 24 times above.  In bf16 every layer rounds the scan's y and two norms to bf16
+# (2^-8), and the gated, renormalised layers amplify a one-ulp flip some thirtyfold:
+# the same two plain versions are 11.5% apart (13% at prompt 128), so the bf16 bound
+# is 50%, and only the f32 comparison can see a wrong term.
+MAMBA_F32_REL_BOUND = 1e-3
+MAMBA_BF16_REL_BOUND = 0.5
+
+# (Bt, S, H, P, G, N): the shapes of the SSD kernel tests, a ragged S with G > 1, and
+# the mamba2-reduced shape
+SSD_TEST_CASES = [
+    (2, 64, 4, 16, 2, 32),
+    (1, 32, 2, 8, 1, 16),
+    (2, 128, 4, 8, 4, 16),
+    (1, 32, 2, 16, 1, 32),
+    (2, 200, 4, 16, 2, 32),
+    (2, 12, 8, 16, 1, 16),
+]
+
 # (B, H, KVH, Sq, Skv, D, causal, window): the cases of the kernel tests
 FA_TEST_CASES = [
     (2, 4, 2, 128, 128, 64, False, None),
@@ -151,6 +192,7 @@ def main() -> int:
     from repro_torch.kernels import LAUNCHES, build, ops, ref, reset_launches
     from repro_torch.kernels.flash_attention import flash_attention_fwd
     from repro_torch.kernels.rmsnorm import rmsnorm_bwd, rmsnorm_fwd
+    from repro_torch.kernels.ssd_scan import ssd_scan_fwd
     from repro_torch.launch.serve import make_prompts, serve_decode, serve_prefill
     from repro_torch.models import init_params, loss_fn
     from repro_torch.models.model import _matmul_f32 as matmul_f32
@@ -549,9 +591,9 @@ def main() -> int:
     say(f"[serve] launches: prefill {prefill_counts}; decode {decode_counts} over {GEN} steps")
     n_layers = cfg.n_layers
     assert prefill_counts == {"flash_attention_fwd": n_layers, "rmsnorm_fwd": 2 * n_layers + 1,
-                              "rmsnorm_bwd": 0}, prefill_counts
+                              "rmsnorm_bwd": 0, "ssd_scan_fwd": 0}, prefill_counts
     assert decode_counts == {"flash_attention_fwd": 0, "rmsnorm_fwd": (2 * n_layers + 1) * GEN,
-                             "rmsnorm_bwd": 0}, decode_counts
+                             "rmsnorm_bwd": 0, "ssd_scan_fwd": 0}, decode_counts
     assert logits.shape == (B, cfg.vocab) and tokens.shape == (B, GEN)
     assert tokens.dtype == torch.int32
     assert bool(torch.isfinite(logits).all()), "non-finite prefill logits"
@@ -633,7 +675,7 @@ def main() -> int:
         f"{time.monotonic() - t0:.3f}s, loss {losses[0]:.4f}")
     L, R = tcfg.n_layers, sum(remat_layers(tcfg))
     per_step = {"flash_attention_fwd": L + R, "rmsnorm_fwd": 2 * L + 1 + 2 * R,
-                "rmsnorm_bwd": 2 * L + 1}
+                "rmsnorm_bwd": 2 * L + 1, "ssd_scan_fwd": 0}
     torch.cuda.reset_peak_memory_stats()
     step_s, gnorms = [], []
     reset_launches()
@@ -740,15 +782,205 @@ def main() -> int:
     # -- 11. the fault-tolerant loop on the card -------------------------------
     train_loop_with_crash(dev)
 
+    # -- 12. K5 against the stepwise recurrence -----------------------------------
+    def ssd_inputs(Bt, S, H, P, G, N, dtype):
+        """x, B, C in ``dtype``; dt in [0.01, 0.2] and A = -exp(0.5·normal) in f32, as
+        tests/kernels/test_ssd_scan.py draws them."""
+        return (randn(Bt, S, H, P, dtype=dtype),
+                0.01 + 0.19 * torch.rand((Bt, S, H), generator=gen, device=dev),
+                -torch.exp(0.5 * randn(H)),
+                randn(Bt, S, G, N, dtype=dtype), randn(Bt, S, G, N, dtype=dtype))
+
+    def ssd_flops(Bt, S, H, P, N):
+        """The chunked form's operations at the kernel's chunk of 64 rows, counting only
+        the causal (j <= i) pairs: C·B and scores·x over the pairs, C·h and the state
+        update over every row."""
+        ops_ = 0
+        for s0 in range(0, S, 64):
+            rows = min(64, S - s0)
+            pairs = rows * (rows + 1) // 2
+            ops_ += 2 * pairs * (N + P) + 4 * rows * N * P
+        return Bt * H * ops_
+
+    def ssd_case(x, dt, A, B, C, timed=False):
+        """K5 against ssd_scan_ref: y (f32 at 2e-4, bf16 at 2e-2) and the f32 state
+        (2e-4); with ``timed``, kernel / stepwise / chunked times and the bound."""
+        y, hT = ssd_scan_fwd(x, dt, A, B, C)
+        want_y, want_h = ref.ssd_scan_ref(x, dt, A, B, C)
+        y_tol = SSD_TOL if x.dtype == torch.float32 else TOL["bfloat16"]
+        torch.testing.assert_close(y.float(), want_y.float(), **y_tol)
+        torch.testing.assert_close(hT, want_h, **SSD_TOL)
+        err = max((y.float() - want_y.float()).abs().max().item(),
+                  (hT - want_h).abs().max().item())
+        if not timed:
+            return err
+        nbytes = 2 * x.numel() * x.element_size() + dt.numel() * 4 + A.numel() * 4 + \
+            2 * B.numel() * B.element_size() + hT.numel() * 4
+        flops = ssd_flops(*x.shape, B.shape[3])
+        peak = BF16_TENSOR_FLOPS if x.dtype == torch.bfloat16 else F32_FLOPS
+        bound_ms, bound_by = bound(nbytes, flops, peak)
+        rec = dict(
+            name="ssd_scan_fwd", route="cuda", source="src/repro_torch/csrc/ssd_scan.cu",
+            replaces="src/repro/kernels/ssd_scan.py:82", max_abs_err=err,
+            ms=time_ms(torch, lambda: ssd_scan_fwd(x, dt, A, B, C)),
+            plain_ms=time_ms(torch, lambda: ref.ssd_scan_ref(x, dt, A, B, C), reps=5),
+            bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+        )
+        chunked_ms = time_ms(torch, lambda: ref.ssd_scan_ref_chunked(
+            x, dt, A, B, C, chunk=ops.SSD_CHUNK), reps=5)
+        say(f"[ssd] ssd_scan_fwd {dtype_name(x)} x{tuple(x.shape)} B{tuple(B.shape)}: "
+            f"max_abs_err {err:.3e} kernel_ms {rec['ms']:.4f} plain_ms {rec['plain_ms']:.4f} "
+            f"(stepwise) chunked_ms {chunked_ms:.4f} library_ms null (no single PyTorch "
+            f"call) bound_ms {bound_ms:.6f} ({bound_by}, {nbytes / 1e6:.1f} MB, "
+            f"{flops / 1e9:.2f} GFLOP) achieved {nbytes / rec['ms'] / 1e6:.1f} GB/s, "
+            f"{flops / rec['ms'] / 1e9:.2f} TFLOP/s")
+        return rec
+
+    for dtype in (torch.float32, torch.bfloat16):
+        for shape in SSD_TEST_CASES:
+            ssd_case(*ssd_inputs(*shape, dtype))
+    extreme = (torch.ones(1, 16, 2, 4, device=dev), torch.full((1, 16, 2), 3.9, device=dev),
+               torch.tensor([-1.0, -16.0], device=dev), torch.ones(1, 16, 1, 4, device=dev),
+               torch.ones(1, 16, 1, 4, device=dev))
+    ssd_case(*extreme)
+    say(f"[ssd] K5 agrees with the stepwise recurrence at {len(SSD_TEST_CASES)} test shapes "
+        "in f32 and bf16 (ragged S 200, G 2 and 4) and at dt·A down to -62")
+    mcfg = get_config("mamba2-370m")
+    MB, MS, MGEN = 4, 1024, 32
+    MH, MP, MN = mcfg.n_ssm_heads, mcfg.ssm_head_dim, mcfg.ssm_state
+    ssd_case(*ssd_inputs(MB, MS, MH, MP, 1, MN, torch.float32), timed=True)
+    records["ssd_scan_fwd"] = ssd_case(*ssd_inputs(MB, MS, MH, MP, 1, MN, torch.bfloat16),
+                                       timed=True)
+    torch.cuda.empty_cache()
+
+    # -- 13. the Mamba slice on mamba2-reduced f32: card with kernels vs CPU plain ----
+    msmall = get_config("mamba2-370m", reduced=True)
+    mp = init_params(msmall, seed=0, device="cpu")
+    mp_cuda = map_leaves(lambda t: t.to(dev), mp)
+    mprompts = make_prompts(msmall, 2, 12, torch.device("cpu"))
+    lc, cc = serve_prefill(msmall, mp, mprompts, 16)
+    lg, cg = serve_prefill(msmall, mp_cuda, mprompts.to(dev), 16)
+    torch.testing.assert_close(lg.cpu(), lc, rtol=3e-4, atol=3e-4)
+    for a, b in zip(cg, cc):
+        for key in ("conv", "ssm"):
+            torch.testing.assert_close(a["self"][key].cpu(), b["self"][key], rtol=3e-4,
+                                       atol=3e-4)
+    tc_, kc = serve_decode(msmall, mp, lc, cc, 12, 4, keep_logits=True)
+    _, kg = serve_decode(msmall, mp_cuda, lg, cg, 12, 4, forced=tc_.to(dev), keep_logits=True)
+    for a, b in zip(kg, kc):
+        torch.testing.assert_close(a.cpu(), b, rtol=5e-4, atol=5e-4)
+    say("[mamba-small] mamba2-reduced f32 prefill (logits, conv and SSM caches) + 4 decode "
+        "steps: card kernels agree with CPU plain within 3e-4 / 5e-4")
+
+    # -- 14. serve mamba2-370m at full width -------------------------------------
+    mparams = init_params(mcfg, seed=0, device=dev)
+    mprompts = make_prompts(mcfg, MB, MS, dev)
+    wl, wc = serve_prefill(mcfg, mparams, mprompts, MS + MGEN)  # warm-up, not counted
+    serve_decode(mcfg, mparams, wl, wc, MS, 2)
+    del wl, wc
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.monotonic()
+    mlogits, mcaches = serve_prefill(mcfg, mparams, mprompts, MS + MGEN)
+    torch.cuda.synchronize()
+    t_prefill = time.monotonic() - t0
+    mprefill_counts = dict(LAUNCHES)
+    reset_launches()
+    step_counts, step_logits, fed = [], [], []
+    t1 = time.monotonic()
+    lg_ = mlogits
+    for i in range(MGEN):  # serve_decode one step at a time, to count each step
+        before = dict(LAUNCHES)
+        tok, kept = serve_decode(mcfg, mparams, lg_, mcaches, MS + i, 1, keep_logits=True)
+        lg_ = kept[0]
+        fed.append(tok)
+        step_logits.append(lg_)
+        step_counts.append({n: LAUNCHES[n] - before[n] for n in LAUNCHES})
+    torch.cuda.synchronize()
+    t_decode = time.monotonic() - t1
+    mdecode_counts = dict(LAUNCHES)
+    mtokens = torch.cat(fed, dim=1)
+    nl = mcfg.n_layers
+    say(f"[serve-mamba2] mamba2-370m bf16 B={MB} prompt={MS}: prefill {t_prefill:.4f}s "
+        f"({MB * MS / t_prefill:.0f} tok/s); decode {MGEN} steps in {t_decode:.4f}s "
+        f"({MB * MGEN / t_decode:.1f} tok/s, {t_decode / MGEN * 1e3:.2f} ms/step); "
+        f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    say(f"[serve-mamba2] launches: prefill {mprefill_counts}; decode {mdecode_counts} over "
+        f"{MGEN} steps")
+    none = {"flash_attention_fwd": 0, "rmsnorm_bwd": 0}
+    assert mprefill_counts == {**none, "ssd_scan_fwd": nl, "rmsnorm_fwd": 2 * nl + 1}, \
+        mprefill_counts
+    assert all(c == {**none, "ssd_scan_fwd": 0, "rmsnorm_fwd": 2 * nl + 1}
+               for c in step_counts), step_counts
+    assert mlogits.shape == (MB, mcfg.vocab) and mtokens.shape == (MB, MGEN)
+    assert mtokens.dtype == torch.int32
+    assert bool(torch.isfinite(mlogits).all()), "non-finite prefill logits"
+    assert all(bool(torch.isfinite(x).all()) for x in step_logits), "non-finite decode logits"
+    say(f"[serve-mamba2] first tokens: {mtokens[:, :8].tolist()}")
+    mamba_counts = {n: mprefill_counts[n] + mdecode_counts[n] for n in LAUNCHES}
+
+    # -- 15. the same prefill with the plain versions, in bf16 and in f32 ----------
+    def plain_prefill(cfg_, params_, impl):
+        t0 = time.monotonic()
+        out = serve_prefill(cfg_, params_, mprompts, MS + MGEN, impl=impl)[0]
+        torch.cuda.synchronize()
+        return out, time.monotonic() - t0
+
+    def compare(label, got, want, rel_bound, extra=""):
+        diff = (got - want).abs().max().item()
+        scale = want.abs().max().item()
+        tok = got.argmax(-1)
+        agree = int((tok == want.argmax(-1)).sum())
+        gap = (want.max(-1).values - want.gather(1, tok[:, None])[:, 0]).max().item()
+        say(f"[slice-mamba2] {label} kernels vs plain, last-position logits: max_abs_diff "
+            f"{diff:.4e} = {diff / scale:.3e} x max|logit| {scale:.4e} (bound {rel_bound}){extra}; "
+            f"first greedy tokens agree on {agree}/{MB} rows, largest plain-logit gap of the "
+            f"kernel's pick {gap:.4e}")
+        assert diff <= rel_bound * scale, (label, diff, scale)
+        assert gap <= rel_bound * scale, (label, gap, scale)
+
+    mlogits_ref, t_plain = plain_prefill(mcfg, mparams, "ref")
+    mlogits_chunked, _ = plain_prefill(mcfg, mparams, "chunked")
+    noise = (mlogits_chunked - mlogits_ref).abs().max().item() / mlogits_ref.abs().max().item()
+    compare("bf16", mlogits, mlogits_ref, MAMBA_BF16_REL_BOUND,
+            f"; plain chunked vs plain stepwise, no kernel: {noise:.3e} x max|logit|; plain "
+            f"stepwise prefill {t_plain:.3f}s")
+    del mcaches, mlogits, mlogits_ref, mlogits_chunked, step_logits
+    f32cfg = dataclasses.replace(mcfg, param_dtype="float32", compute_dtype="float32")
+    p32 = map_leaves(lambda t: t.float(), mparams)
+    del mparams
+    compare("f32", plain_prefill(f32cfg, p32, None)[0], plain_prefill(f32cfg, p32, "ref")[0],
+            MAMBA_F32_REL_BOUND, " (the same weights widened to f32)")
+    del p32
+    torch.cuda.empty_cache()
+
+    # -- 16. the SSD Function's gradients against plain autograd, f32 --------------
+    for shape in ((1, 32, 2, 8, 1, 16), (2, 200, 4, 16, 2, 32)):
+        base = ssd_inputs(*shape, torch.float32)
+        g = randn(*base[0].shape)
+        grads = {}
+        for impl in (None, "ref"):
+            ins = [t.clone().requires_grad_(True) for t in base]
+            grads[impl] = torch.autograd.grad(ops.ssd_scan(*ins, impl=impl), ins, g)
+        for a, b in zip(grads[None], grads["ref"]):
+            torch.testing.assert_close(a, b, **SSD_TOL)
+    say(f"[ssd] Function gradients (K5 + chunked backward) agree with plain autograd through "
+        f"the stepwise recurrence within {SSD_TOL}")
+
     # -- records ---------------------------------------------------------------
-    # times at the training shapes; launches over the 20 timed training steps, and
-    # per path (the serve run of phase 5 and the training run of phase 9)
+    # times at the training shapes (K2, K3, K4) and the mamba2 serving shape (K5);
+    # launches over the main path of each kernel's own slice (the 20 timed training
+    # steps for K2, K3, K4; the mamba2 serve run for K5), and per path (the gemma3
+    # serve run of phase 5, the training run of phase 9, the mamba2 serve run of 14)
+    records["ssd_scan_fwd"]["launches"] = mamba_counts["ssd_scan_fwd"]
     kernels_line = [
         {**{key: rec[key] for key in ("name", "route", "source", "replaces", "launches",
                                       "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                                       "library_ms")},
          "launches_by_path": {"serve": serve_counts[rec["name"]],
-                              "train": train_counts[rec["name"]]}}
+                              "train": train_counts[rec["name"]],
+                              "serve_mamba2": mamba_counts[rec["name"]]}}
         for rec in records.values()
     ]
     print(json.dumps({"kernels": kernels_line}))

@@ -1,7 +1,8 @@
 """Architecture registry: ``--arch <id>`` → ModelConfig.
 
-The port carries the dense architectures whose layers it covers.  The other
-architectures of the reference registry wait for the layers they need."""
+The port carries the architectures whose layers it covers: dense attention and
+Mamba-2.  The other architectures of the reference registry wait for the layers
+they need."""
 
 from __future__ import annotations
 
@@ -16,15 +17,15 @@ ARCHS: dict[str, str] = {
     "internlm2-1.8b": "internlm2_1_8b",
     "deepseek-coder-33b": "deepseek_coder_33b",
     "starcoder2-15b": "starcoder2_15b",
+    "mamba2-370m": "mamba2_370m",
 }
 
 #: Reference architectures not ported yet, with the ROADMAP item that ports their layers.
 PENDING: dict[str, str] = {
-    "jamba-v0.1-52b": "ROADMAP.md §A: MoE layers and §B K5 with the Mamba layers",
+    "jamba-v0.1-52b": "ROADMAP.md §A: MoE layers",
     "whisper-medium": "ROADMAP.md §A: cross-attention and encoder-decoder layers",
     "grok-1-314b": "ROADMAP.md §A: MoE layers",
     "kimi-k2-1t-a32b": "ROADMAP.md §A: MoE layers",
-    "mamba2-370m": "ROADMAP.md §B K5 with the Mamba layers",
     "llama-3.2-vision-11b": "ROADMAP.md §A: cross-attention and encoder-decoder layers",
 }
 

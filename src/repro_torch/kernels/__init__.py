@@ -4,6 +4,8 @@ dispatches by device and carries the gradient (``ops.py``)."""
 
 from . import ref
 from .build import LAUNCHES, reset_launches
-from .ops import flash_attention, rmsnorm
+from .ops import flash_attention, rmsnorm, ssd_scan, ssd_step
 
-__all__ = ["ref", "flash_attention", "rmsnorm", "LAUNCHES", "reset_launches"]
+__all__ = [
+    "ref", "flash_attention", "rmsnorm", "ssd_scan", "ssd_step", "LAUNCHES", "reset_launches"
+]

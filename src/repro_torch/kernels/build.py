@@ -32,7 +32,9 @@ COMPILE_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 DTYPE_CODES = {"float32": 0, "bfloat16": 1}
 
 #: Kernel launches since the last :func:`reset_launches`, by kernel name.
-LAUNCHES: dict[str, int] = {"rmsnorm_fwd": 0, "rmsnorm_bwd": 0, "flash_attention_fwd": 0}
+LAUNCHES: dict[str, int] = {
+    "rmsnorm_fwd": 0, "rmsnorm_bwd": 0, "flash_attention_fwd": 0, "ssd_scan_fwd": 0
+}
 
 _LIB: ctypes.CDLL | None = None
 #: Seconds the last build took in this process (None: loaded a cached library).
@@ -139,5 +141,9 @@ def load() -> ctypes.CDLL:
         lib.flash_attention_fwd.restype = i
         lib.flash_attention_fwd_smem.argtypes = [i, i]
         lib.flash_attention_fwd_smem.restype = ctypes.c_longlong
+        lib.ssd_scan_fwd.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, i, p]
+        lib.ssd_scan_fwd.restype = i
+        lib.ssd_scan_fwd_smem.argtypes = [i, i]
+        lib.ssd_scan_fwd_smem.restype = ctypes.c_longlong
         _LIB = lib
     return _LIB

@@ -20,6 +20,11 @@ Gradients: one ``torch.autograd.Function`` per op, the port of the reference's
 * ``"ref"``     — plain autograd through the plain versions, on any device (the
                   reference's naive ``ref`` mode).
 
+* SSD scan: ``None`` is K5 forward on a CUDA tensor and its plain version
+  (:func:`ref.ssd_scan_ref`) on the CPU, with the backward by autograd through the
+  plain chunked version (chunk :data:`SSD_CHUNK`); ``"chunked"`` is plain autograd
+  through the chunked version and ``"ref"`` through the stepwise one.
+
 Without a gradient to take (``no_grad``, inference mode, or no operand that
 requires one) the ops run the forward alone: the attention kernel writes no
 logsumexp and nothing is saved.  The reference's global kernel mode and the Myia
@@ -33,10 +38,15 @@ import torch
 from . import ref
 from .flash_attention import flash_attention_fwd
 from .rmsnorm import rmsnorm_bwd, rmsnorm_fwd
+from .ssd_scan import ssd_scan_fwd
 
-__all__ = ["flash_attention", "rmsnorm", "IMPLS"]
+__all__ = ["flash_attention", "rmsnorm", "ssd_scan", "ssd_step", "IMPLS", "SSD_CHUNK"]
 
 IMPLS = (None, "ref", "chunked")
+
+#: Chunk length of the plain chunked SSD (``impl="chunked"`` and the backward), the
+#: reference's default (``REPRO_SSD_CHUNK``, ops.py).
+SSD_CHUNK = 128
 
 
 def _use_kernel(x: torch.Tensor, impl: str | None) -> bool:
@@ -142,3 +152,61 @@ def rmsnorm(
         return _RMSNorm.apply(x, w, eps, kernel)
     return rmsnorm_fwd(x, w, eps=eps) if kernel else ref.rmsnorm_ref(x, w, eps)
 
+
+# ===========================================================================
+# SSD scan (Mamba-2)
+# ===========================================================================
+
+
+def _ssd_chunked(x, dt, A, B, C):
+    return ref.ssd_scan_ref_chunked(x, dt, A, B, C, chunk=SSD_CHUNK)
+
+
+class _SSDScan(torch.autograd.Function):
+    """Forward: K5 (``kernel``) or its plain version, y only.  Backward: autograd
+    through the plain chunked version from the saved inputs, whose residuals are
+    per-chunk states rather than per-step ones (the reference's ``_ssd_bwd_vjp``)."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, B, C, kernel):
+        ctx.save_for_backward(x, dt, A, B, C)
+        return (ssd_scan_fwd if kernel else ref.ssd_scan_ref)(x, dt, A, B, C)[0]
+
+    @staticmethod
+    def backward(ctx, dy):
+        inputs = [t.detach().requires_grad_(True) for t in ctx.saved_tensors]
+        with torch.enable_grad():
+            y = _ssd_chunked(*inputs)[0]
+        grads = torch.autograd.grad(y, inputs, dy, allow_unused=True)
+        return (*(g if need else None for g, need in zip(grads, ctx.needs_input_grad)), None)
+
+
+def ssd_scan(
+    x: torch.Tensor,
+    dt: torch.Tensor,
+    A: torch.Tensor,
+    B: torch.Tensor,
+    C: torch.Tensor,
+    *,
+    return_final_state: bool = False,
+    impl: str | None = None,
+):
+    """Mamba-2 SSD over a sequence.  x: (Bt,S,H,P); dt: (Bt,S,H); A: (H,);
+    B, C: (Bt,S,G,N).  Returns y (Bt,S,H,P) in x.dtype, or with
+    ``return_final_state`` the serving form ``(y, final state (Bt,H,N,P) f32)``,
+    which is not differentiable through the kernel (as in the reference)."""
+    kernel = _use_kernel(x, impl)
+    fwd = ssd_scan_fwd if kernel else _ssd_chunked if impl == "chunked" else ref.ssd_scan_ref
+    if return_final_state:
+        if kernel and _needs_grad(x, dt, A, B, C):
+            raise ValueError("ssd_scan with return_final_state is not differentiable")
+        return fwd(x, dt, A, B, C)
+    if impl is None and _needs_grad(x, dt, A, B, C):
+        return _SSDScan.apply(x, dt, A, B, C, kernel)
+    return fwd(x, dt, A, B, C)[0]  # "ref" and "chunked": plain autograd
+
+
+def ssd_step(h, x_t, dt_t, A, B_t, C_t):
+    """One decode step, the state carried explicitly: plain PyTorch on any device,
+    as in the reference (the update is a small elementwise, bandwidth-bound pass)."""
+    return ref.ssd_step_ref(h, x_t, dt_t, A, B_t, C_t)

@@ -5,7 +5,7 @@ card, and what the public ops run for tensors on the CPU.  Each follows its
 counterpart in ``repro.kernels.ref``: same masks, same finite mask value, f32
 accumulation, output in the input dtype.  The chunked attention functions keep the
 reference's ``block_k = 512`` key blocks; its ``lax.scan`` over blocks is a Python
-loop here.
+loop here, as are the SSD scans' ``lax.scan``s over steps and chunks.
 """
 
 from __future__ import annotations
@@ -231,3 +231,120 @@ def rmsnorm_ref(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Te
     var = torch.mean(torch.square(xf), dim=-1, keepdim=True)
     y = xf * torch.rsqrt(var + eps) * w.to(torch.float32)
     return y.to(x.dtype)
+
+
+# ===========================================================================
+# Mamba-2 SSD
+# ===========================================================================
+
+
+def _groups_to_heads(t: torch.Tensor, heads: int, dim: int) -> torch.Tensor:
+    """f32 copy of ``t`` with its group axis ``dim`` repeated to ``heads``: head h
+    reads group ``h // (heads / groups)``."""
+    groups = t.shape[dim]
+    if groups == 0 or heads % groups:
+        raise ValueError(f"heads {heads} are not a multiple of groups {groups}")
+    return t.to(torch.float32).repeat_interleave(heads // groups, dim=dim)
+
+
+def ssd_scan_ref(
+    x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor, C: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Mamba-2 SSD recurrence, stepwise: the oracle K5 is held against.
+
+    x: (Bt, S, H, P); dt: (Bt, S, H) positive steps; A: (H,) negative rates;
+    B, C: (Bt, S, G, N) with H % G == 0.
+
+        h_t = exp(A·dt_t)·h_{t-1} + dt_t·(B_t ⊗ x_t)     h: (H, N, P)
+        y_t = C_t · h_t                                   y: (H, P)
+
+    Returns (y (Bt, S, H, P) in x.dtype, final state (Bt, H, N, P) f32)."""
+    Bt, S, H, P = x.shape
+    N = B.shape[3]
+    xf, dtf, Af = x.to(torch.float32), dt.to(torch.float32), A.to(torch.float32)
+    Bf, Cf = _groups_to_heads(B, H, 2), _groups_to_heads(C, H, 2)  # (Bt, S, H, N)
+    h = torch.zeros((Bt, H, N, P), dtype=torch.float32, device=x.device)
+    ys = []
+    for t in range(S):
+        a_t = torch.exp(Af * dtf[:, t])  # (Bt, H)
+        h = a_t[..., None, None] * h + (
+            dtf[:, t, :, None, None] * Bf[:, t, :, :, None] * xf[:, t, :, None, :]
+        )
+        ys.append(torch.einsum("bhn,bhnp->bhp", Cf[:, t], h))
+    y = torch.stack(ys, dim=1) if ys else xf.new_zeros((Bt, 0, H, P))
+    return y.to(x.dtype), h
+
+
+def ssd_scan_ref_chunked(
+    x: torch.Tensor,
+    dt: torch.Tensor,
+    A: torch.Tensor,
+    B: torch.Tensor,
+    C: torch.Tensor,
+    chunk: int = 256,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Chunked SSD: per-chunk matmuls (the dual, attention-like form) plus an
+    (S/L)-step recurrence over the chunks' states, as the TPU kernel computes it.
+
+    Unlike the reference's twin, the decay ``exp(cum_i − cum_j)`` is never formed
+    above the diagonal, where ``cum_i − cum_j`` is large and positive: the mask
+    selects ``−inf`` before the ``exp``.  The forward values are the same, and the
+    backward stays finite where the reference's computes 0·inf (strongly negative
+    dt·A; ``tests/kernels/test_ssd_scan.py:92``).  Any S works: the last chunk is
+    padded with zero rows and dt = 0, which add nothing and leave the decay as it is.
+
+    Returns (y (Bt, S, H, P) in x.dtype, final state (Bt, H, N, P) f32)."""
+    Bt, S, H, P = x.shape
+    N = B.shape[3]
+    L = max(1, min(chunk, S))
+    nc = -(-S // L)
+    pad = nc * L - S
+    F = torch.nn.functional
+    xf = F.pad(x.to(torch.float32), (0, 0, 0, 0, 0, pad)).reshape(Bt, nc, L, H, P)
+    dtf = F.pad(dt.to(torch.float32), (0, 0, 0, pad)).reshape(Bt, nc, L, H)
+    Bf = F.pad(_groups_to_heads(B, H, 2), (0, 0, 0, 0, 0, pad)).reshape(Bt, nc, L, H, N)
+    Cf = F.pad(_groups_to_heads(C, H, 2), (0, 0, 0, 0, 0, pad)).reshape(Bt, nc, L, H, N)
+
+    cum = torch.cumsum(A.to(torch.float32) * dtf, dim=2)  # (Bt, nc, L, H)
+
+    # intra-chunk: y_i += Σ_{j≤i} (C_i·B_j)·exp(cum_i − cum_j)·dt_j·x_j
+    seg = cum[:, :, :, None] - cum[:, :, None, :]  # (Bt, nc, L, L, H)
+    tri = torch.ones((L, L), dtype=torch.bool, device=x.device).tril()[None, None, :, :, None]
+    decay = torch.exp(torch.where(tri, seg, torch.full_like(seg, float("-inf"))))
+    s = torch.einsum("bclhn,bcmhn->bclmh", Cf, Bf) * decay * dtf[:, :, None]
+    y = torch.einsum("bclmh,bcmhp->bclhp", s, xf)
+
+    # inter-chunk: the state entering each chunk, by a recurrence over the chunks
+    w = torch.exp(cum[:, :, -1:, :] - cum) * dtf  # (Bt, nc, L, H)
+    chunk_state = torch.einsum("bclhn,bclh,bclhp->bchnp", Bf, w, xf)
+    total_decay = torch.exp(cum[:, :, -1])  # (Bt, nc, H)
+    h = torch.zeros((Bt, H, N, P), dtype=torch.float32, device=x.device)
+    h_in = []
+    for c in range(nc):
+        h_in.append(h)
+        h = total_decay[:, c, :, None, None] * h + chunk_state[:, c]
+    y = y + torch.einsum("bclhn,bclh,bchnp->bclhp", Cf, torch.exp(cum), torch.stack(h_in, 1))
+    return y.reshape(Bt, nc * L, H, P)[:, :S].to(x.dtype), h
+
+
+def ssd_step_ref(
+    h: torch.Tensor,
+    x_t: torch.Tensor,
+    dt_t: torch.Tensor,
+    A: torch.Tensor,
+    B_t: torch.Tensor,
+    C_t: torch.Tensor,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """One decode step of the SSD recurrence.
+
+    h: (Bt, H, N, P) f32 carried state; x_t: (Bt, H, P); dt_t: (Bt, H);
+    B_t, C_t: (Bt, G, N).  Returns (new state, y_t (Bt, H, P) in x_t.dtype)."""
+    H = x_t.shape[1]
+    bf, cf = _groups_to_heads(B_t, H, 1), _groups_to_heads(C_t, H, 1)  # (Bt, H, N)
+    dtf = dt_t.to(torch.float32)
+    a = torch.exp(A.to(torch.float32) * dtf)  # (Bt, H)
+    h = a[..., None, None] * h + (
+        dtf[..., None, None] * bf[..., :, None] * x_t.to(torch.float32)[..., None, :]
+    )
+    y = torch.einsum("bhn,bhnp->bhp", cf, h)
+    return h, y.to(x_t.dtype)

@@ -1,11 +1,11 @@
 """Where the serving path's time goes on the card.
 
-    PYTHONPATH=src python -m repro_torch.launch.profile_serve
+    PYTHONPATH=src python -m repro_torch.launch.profile_serve [--arch mamba2-370m]
 
-Runs gemma3-1b at full width in bf16 (random weights from a seed) on the
-serving cell of ``chip_smoke.py`` (batch 4, prompt 1024): a warm-up, then one
-prefill and ``STEPS`` decode steps, each phase once with host
-clocks alone and once under ``torch.profiler``.  For each phase it prints the
+Runs ``--arch`` (default gemma3-1b) at full width in bf16 (random weights from a
+seed) on the serving cells of ``chip_smoke.py`` (batch 4, prompt 1024): a warm-up,
+then one prefill and ``STEPS`` decode steps, each phase once with host clocks alone
+and once under ``torch.profiler``.  For each phase it prints the
 wall time, the device's busy time (the sum of its kernels' times, from the
 profiler), the device's idle share of the wall time, the number of kernels, and
 the kernels that take the most device time.
@@ -13,18 +13,19 @@ the kernels that take the most device time.
 
 from __future__ import annotations
 
+import argparse
 import json
 import time
 
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from repro_torch.configs import get_config
+from repro_torch.configs import ARCHS, get_config
 from repro_torch.device import resolve_device
 from repro_torch.launch.serve import make_prompts, serve_decode, serve_prefill
 from repro_torch.models import init_params
 
-ARCH, BATCH, PROMPT_LEN = "gemma3-1b", 4, 1024
+BATCH, PROMPT_LEN = 4, 1024
 STEPS = 8  # decode steps profiled
 TOP = 14  # kernels listed per phase
 
@@ -37,10 +38,13 @@ def _kernel_rows(prof) -> list[dict]:
     return sorted(rows, key=lambda r: -r["us"])
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="gemma3-1b", choices=sorted(ARCHS))
+    args = ap.parse_args(argv)
     dev = resolve_device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = get_config(ARCH)
+    cfg = get_config(args.arch)
     params = init_params(cfg, seed=0, device=dev)
     prompts = make_prompts(cfg, BATCH, PROMPT_LEN, dev)
     P, max_len = PROMPT_LEN, PROMPT_LEN + STEPS + 2
@@ -74,6 +78,7 @@ def main() -> int:
         rows = _kernel_rows(prof)
         busy_ms = sum(r["us"] for r in rows) / 1e3
         summary = {
+            "arch": args.arch,
             "phase": phase,
             "steps": 1 if phase == "prefill" else STEPS,
             "wall_ms": wall_ms,

@@ -2,10 +2,12 @@
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-1b \\
         --batch 4 --prompt-len 1024 --gen 32
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-370m --prompt-len 1024
 
 The port of ``repro.launch.serve --compiler jax``: random weights from a seed,
 a batch of random prompts (the same token ids as the reference driver's), one
-prefill, then greedy decode against the KV caches.  ``--device cpu`` runs the
+prefill, then greedy decode against the caches (KV for attention layers, conv
+window and SSM state for Mamba layers).  ``--device cpu`` runs the
 plain PyTorch versions of the kernels on the CPU; the default is ``cuda``.
 The Myia-compiled serving path (``--compiler myia``) waits for the Myia slices.
 """
@@ -34,7 +36,7 @@ def make_prompts(
 
 @torch.inference_mode()
 def serve_prefill(cfg: ModelConfig, params, prompts: torch.Tensor, max_len: int, *, impl=None):
-    """Prefill the prompts: (logits of the last position (B, V) f32, KV caches)."""
+    """Prefill the prompts: (logits of the last position (B, V) f32, caches)."""
     return prefill(cfg, params, prompts, max_len, impl=impl)
 
 

@@ -1,4 +1,4 @@
-"""Model zoo (dense attention models): one config schema, the training loss,
+"""Model zoo (dense attention and Mamba-2 models): one config schema, the training loss,
 prefill and cached decode."""
 
 from .common import LayerSpec, ModelConfig

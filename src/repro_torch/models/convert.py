@@ -12,7 +12,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
-from .common import ModelConfig
+from .common import LayerSpec, ModelConfig
 from .model import Params, check_supported
 
 
@@ -25,14 +25,24 @@ def _tensor(a: Any, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
     return t.to(device=device, dtype=dtype)
 
 
-def _layer(cfg: ModelConfig, lp: dict, device: torch.device) -> Params:
+#: Leaves of each mixer: matrices (in ``cfg.pdtype``) and f32 vectors, as
+#: ``attn_init`` and ``mamba_init`` make them.
+_MIXER_LEAVES = {
+    "attn": (("wq", "wk", "wv", "wo"), ()),
+    "mamba": (("in_proj", "conv_w", "out_proj"), ("A_log", "D_skip", "dt_bias", "gate_norm")),
+}
+
+
+def _layer(cfg: ModelConfig, spec: LayerSpec, lp: dict, device: torch.device) -> Params:
     pd = cfg.pdtype
-    return {
-        "norm1": _tensor(lp["norm1"], torch.float32, device),
-        "mixer": {n: _tensor(lp["mixer"][n], pd, device) for n in ("wq", "wk", "wv", "wo")},
-        "norm2": _tensor(lp["norm2"], torch.float32, device),
-        "ffn": {n: _tensor(lp["ffn"][n], pd, device) for n in ("wi", "wg", "wo")},
-    }
+    matrices, vectors = _MIXER_LEAVES[spec.mixer]
+    mixer = {n: _tensor(lp["mixer"][n], pd, device) for n in matrices}
+    mixer.update({n: _tensor(lp["mixer"][n], torch.float32, device) for n in vectors})
+    p = {"norm1": _tensor(lp["norm1"], torch.float32, device), "mixer": mixer}
+    if spec.ffn:
+        p["norm2"] = _tensor(lp["norm2"], torch.float32, device)
+        p["ffn"] = {n: _tensor(lp["ffn"][n], pd, device) for n in ("wi", "wg", "wo")}
+    return p
 
 
 def params_from_jax(
@@ -43,7 +53,8 @@ def params_from_jax(
     Segments with ``reps > 1`` hold every leaf stacked on a leading axis;
     they are unstacked along it in ``stack_init``'s order (repeat-major,
     then position in the pattern), which is depth order.  Matrices come out
-    in ``cfg.pdtype`` and norm weights in f32, as ``init_params`` makes them."""
+    in ``cfg.pdtype`` and norm weights and the Mamba mixer's vectors in f32, as
+    ``init_params`` makes them."""
     dev = resolve_device(device)
     segments = cfg.scan_segments()
     if len(segments) != len(tree["segments"]):
@@ -55,11 +66,11 @@ def params_from_jax(
         for spec in pattern:
             check_supported(spec)
         for r in range(reps):
-            for i in range(len(pattern)):
+            for i, spec in enumerate(pattern):
                 lp = seg["layers"][i]
                 if reps > 1:
                     lp = _index(lp, r)
-                layers.append(_layer(cfg, lp, dev))
+                layers.append(_layer(cfg, spec, lp, dev))
     p: Params = {
         "embed": _tensor(tree["embed"], cfg.pdtype, dev),
         "layers": layers,

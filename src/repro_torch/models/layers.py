@@ -1,12 +1,14 @@
-"""Layer building blocks: RMSNorm, GQA attention (global / sliding-window), GLU MLP.
+"""Layer building blocks: RMSNorm, GQA attention (global / sliding-window), GLU MLP,
+the Mamba-2 mixer (SSD).
 
-The port of the dense part of ``repro.models.layers``.  Every block is a pair of
-functions ``*_init(cfg, gen) -> params`` and ``*_apply(cfg, params, …) -> y``,
-plus a cached decode variant for attention.  Parameters keep the reference's
-layouts: ``wq``/``wk``/``wv`` are ``(D, heads, hd)`` and ``wo`` is ``(H, hd, D)``;
-q/k/v are ``(B, heads, S, hd)``.  ``impl`` is passed to the kernel ops (``"ref"``
-runs the plain versions on any device).  MoE, Mamba and cross-attention wait for
-later slices.
+The port of ``repro.models.layers`` without MoE and cross-attention, which wait for
+a later slice.  Every block is a pair of functions ``*_init(cfg, gen) -> params``
+and ``*_apply(cfg, params, …) -> y``, plus a cached decode variant for the mixers.
+Parameters keep the reference's layouts: ``wq``/``wk``/``wv`` are ``(D, heads,
+hd)`` and ``wo`` is ``(H, hd, D)``; q/k/v are ``(B, heads, S, hd)``; the Mamba
+mixer's ``in_proj`` is ``(D, 2·DI + 2·N + NH)`` (``[z, x, B, C, dt]``) and
+``conv_w`` ``(K, DI + 2·N)``.  ``impl`` is passed to the kernel ops (``"ref"``
+runs the plain versions on any device).
 """
 
 from __future__ import annotations
@@ -166,3 +168,124 @@ def mlp_apply(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
     h = x @ p["wi"].to(cfg.cdtype)
     g = x @ p["wg"].to(cfg.cdtype)
     return (h * _act(cfg, g)) @ p["wo"].to(cfg.cdtype)
+
+
+# ===========================================================================
+# Mamba-2 mixer (SSD)
+# ===========================================================================
+
+
+def mamba_init(cfg: ModelConfig, gen: torch.Generator) -> Params:
+    D, DI, NH, N = cfg.d_model, cfg.d_inner, cfg.n_ssm_heads, cfg.ssm_state
+    G = 1  # n_groups
+    dt = cfg.pdtype
+    dev = gen.device
+    conv_dim = DI + 2 * G * N
+    proj_out = 2 * DI + 2 * G * N + NH  # [z, x, B, C, dt]
+    f32 = dict(dtype=torch.float32, device=dev)
+    return {
+        "in_proj": dense_init(gen, (D, proj_out), dt),
+        "conv_w": dense_init(gen, (cfg.conv_kernel, conv_dim), dt, fan_in=cfg.conv_kernel),
+        "A_log": torch.log(torch.linspace(1.0, 16.0, NH, **f32)),
+        "D_skip": torch.ones((NH,), **f32),
+        "dt_bias": torch.zeros((NH,), **f32),
+        "gate_norm": torch.ones((DI,), **f32),
+        "out_proj": dense_init(gen, (DI, D), dt, fan_in=DI),
+    }
+
+
+def _mamba_split(cfg: ModelConfig, zxbcdt: torch.Tensor):
+    """(z, xc = [x, B, C] (conv'd together), dt (…, NH)): views of the projection."""
+    DI, N = cfg.d_inner, cfg.ssm_state
+    return zxbcdt[..., :DI], zxbcdt[..., DI:2 * DI + 2 * N], zxbcdt[..., 2 * DI + 2 * N:]
+
+
+def _causal_conv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Depthwise causal conv along axis 1.  x: (B, S, C); w: (K, C).  The same sum of
+    K shifted products as the reference, in the same order."""
+    K, S = w.shape[0], x.shape[1]
+    xp = F.pad(x, (0, 0, K - 1, 0))
+    return sum(xp[:, i:i + S, :] * w[i][None, None, :] for i in range(K))
+
+
+def _mamba_forward(cfg: ModelConfig, p: Params, x: torch.Tensor, return_state: bool,
+                   impl: str | None):
+    """The Mamba-2 block on a full sequence: (y, final SSM state or None, the
+    pre-conv [x, B, C] rows that prefill keeps for the conv cache)."""
+    B, S, _ = x.shape
+    DI, N, NH, P = cfg.d_inner, cfg.ssm_state, cfg.n_ssm_heads, cfg.ssm_head_dim
+    zxbcdt = x @ p["in_proj"].to(cfg.cdtype)
+    z, xc_raw, dtr = _mamba_split(cfg, zxbcdt)
+    xc = F.silu(_causal_conv(xc_raw, p["conv_w"].to(cfg.cdtype)))
+    xs, Bm, Cm = xc[..., :DI], xc[..., DI:DI + N], xc[..., DI + N:]
+
+    # F.softplus returns its input above 20, where jax.nn.softplus is exact: a gap
+    # under 2e-9 relative
+    dt = F.softplus(dtr.to(torch.float32) + p["dt_bias"])  # (B, S, NH)
+    A = -torch.exp(p["A_log"])  # (NH,) negative
+    xh = xs.reshape(B, S, NH, P)
+    # x, B and C are slices of one split: the kernel takes contiguous operands
+    out = kernels.ssd_scan(
+        xh.contiguous(), dt.contiguous(), A, Bm[:, :, None, :].contiguous(),
+        Cm[:, :, None, :].contiguous(), return_final_state=return_state, impl=impl,
+    )
+    y, state = out if return_state else (out, None)
+    y = y + p["D_skip"].to(cfg.cdtype)[None, None, :, None] * xh  # skip
+    y = y.to(cfg.cdtype).reshape(B, S, DI)
+    y = y * F.silu(z)
+    y = kernels.rmsnorm(y, p["gate_norm"], eps=cfg.norm_eps, impl=impl)
+    return y @ p["out_proj"].to(cfg.cdtype), state, xc_raw
+
+
+def mamba_apply(
+    cfg: ModelConfig,
+    p: Params,
+    x: torch.Tensor,
+    *,
+    return_state: bool = False,
+    impl: str | None = None,
+):
+    """Full-sequence Mamba-2 block.  x: (B, S, D).  With ``return_state`` returns
+    ``(y, final SSM state (B, NH, N, P) f32)``, the serving form."""
+    y, state, _ = _mamba_forward(cfg, p, x, return_state, impl)
+    return (y, state) if return_state else y
+
+
+def mamba_cache_init(cfg: ModelConfig, batch: int, device: torch.device) -> Params:
+    G = 1
+    conv_dim = cfg.d_inner + 2 * G * cfg.ssm_state
+    return {
+        "conv": torch.zeros((batch, cfg.conv_kernel - 1, conv_dim), dtype=cfg.cdtype,
+                            device=device),
+        "ssm": torch.zeros((batch, cfg.n_ssm_heads, cfg.ssm_state, cfg.ssm_head_dim),
+                           dtype=torch.float32, device=device),
+    }
+
+
+def mamba_decode(
+    cfg: ModelConfig, p: Params, x_t: torch.Tensor, cache: Params, *, impl: str | None = None
+) -> tuple[torch.Tensor, Params]:
+    """One-token Mamba-2 step.  x_t: (B, 1, D).  Updates ``cache`` (the last K-1
+    pre-conv rows and the SSM state) in place and returns ``(y, cache)``."""
+    B = x_t.shape[0]
+    DI, N, NH, P = cfg.d_inner, cfg.ssm_state, cfg.n_ssm_heads, cfg.ssm_head_dim
+    zxbcdt = x_t @ p["in_proj"].to(cfg.cdtype)
+    z, xc_t, dtr = _mamba_split(cfg, zxbcdt)  # xc_t: (B, 1, conv_dim)
+
+    window = torch.cat([cache["conv"], xc_t], dim=1)  # (B, K, conv_dim)
+    xc = torch.einsum("bkc,kc->bc", window, p["conv_w"].to(cfg.cdtype))[:, None, :]
+    xc = F.silu(xc)
+
+    xs, Bm, Cm = xc[..., :DI], xc[..., DI:DI + N], xc[..., DI + N:]
+    dt = F.softplus(dtr[:, 0].to(torch.float32) + p["dt_bias"])  # (B, NH)
+    A = -torch.exp(p["A_log"])
+    xh = xs.reshape(B, NH, P)
+    new_ssm, y = kernels.ssd_step(cache["ssm"], xh, dt, A, Bm[:, 0, None, :], Cm[:, 0, None, :])
+    y = y + p["D_skip"].to(cfg.cdtype)[None, :, None] * xh
+    y = y.to(cfg.cdtype).reshape(B, 1, DI)
+    y = y * F.silu(z)
+    y = kernels.rmsnorm(y, p["gate_norm"], eps=cfg.norm_eps, impl=impl)
+    y = y @ p["out_proj"].to(cfg.cdtype)
+    cache["conv"].copy_(window[:, 1:])
+    cache["ssm"].copy_(new_ssm)
+    return y, cache

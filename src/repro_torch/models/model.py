@@ -1,4 +1,5 @@
-"""Model assembly: embedding → layer stack → head, for the dense attention models.
+"""Model assembly: embedding → layer stack → head, for the dense attention models,
+the Mamba-2 models and hybrids of the two.
 
 Four execution paths share one parameter dictionary:
 
@@ -22,6 +23,7 @@ import functools
 from typing import Any
 
 import torch
+import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch import kernels
@@ -35,10 +37,12 @@ _AUX_WEIGHT = 0.01  # MoE load-balance loss weight (no MoE layer is ported yet)
 
 
 def check_supported(spec: LayerSpec) -> None:
-    if spec.mixer != "attn" or spec.moe or spec.cross_attn or not spec.ffn:
+    """Attention or Mamba mixers, with or without the dense FFN; no MoE, no
+    cross-attention yet."""
+    if spec.mixer not in ("attn", "mamba") or spec.moe or spec.cross_attn:
         raise NotImplementedError(
             f"layer {spec.tag!r} is not ported yet (ROADMAP.md §A: MoE, cross-attention "
-            "and encoder-decoder layers; §B K5 with the Mamba layers)"
+            "and encoder-decoder layers)"
         )
 
 
@@ -51,12 +55,20 @@ def layer_init(
     cfg: ModelConfig, spec: LayerSpec, gen: torch.Generator, device: torch.device
 ) -> Params:
     check_supported(spec)
-    return {
-        "norm1": L.norm_init(cfg, device),
-        "mixer": L.attn_init(cfg, gen),
-        "norm2": L.norm_init(cfg, device),
-        "ffn": L.mlp_init(cfg, gen),
-    }
+    p: Params = {"norm1": L.norm_init(cfg, device)}
+    p["mixer"] = L.attn_init(cfg, gen) if spec.mixer == "attn" else L.mamba_init(cfg, gen)
+    if spec.ffn:
+        p["norm2"] = L.norm_init(cfg, device)
+        p["ffn"] = L.mlp_init(cfg, gen)
+    return p
+
+
+def _ffn(cfg: ModelConfig, spec: LayerSpec, p: Params, x: torch.Tensor, impl) -> torch.Tensor:
+    """The channel-mixing sublayer with its residual, or x for a mixer-only layer."""
+    if not spec.ffn:
+        return x
+    h2 = L.norm_apply(cfg, p["norm2"], x, impl=impl)
+    return x + L.mlp_apply(cfg, p["ffn"], h2)
 
 
 def layer_apply(
@@ -69,15 +81,19 @@ def layer_apply(
     impl: str | None = None,
 ) -> torch.Tensor:
     h = L.norm_apply(cfg, p["norm1"], x, impl=impl)
-    x = x + L.attn_apply(cfg, p["mixer"], h, positions, kind=spec.attn_kind, impl=impl)
-    h2 = L.norm_apply(cfg, p["norm2"], x, impl=impl)
-    return x + L.mlp_apply(cfg, p["ffn"], h2)
+    if spec.mixer == "attn":
+        y = L.attn_apply(cfg, p["mixer"], h, positions, kind=spec.attn_kind, impl=impl)
+    else:
+        y = L.mamba_apply(cfg, p["mixer"], h, impl=impl)
+    return _ffn(cfg, spec, p, x + y, impl)
 
 
 def layer_cache_init(
     cfg: ModelConfig, spec: LayerSpec, batch: int, max_len: int, device: torch.device
 ) -> Params:
-    return {"self": L.attn_cache_init(cfg, batch, max_len, device, kind=spec.attn_kind)}
+    if spec.mixer == "attn":
+        return {"self": L.attn_cache_init(cfg, batch, max_len, device, kind=spec.attn_kind)}
+    return {"self": L.mamba_cache_init(cfg, batch, device)}
 
 
 def layer_decode(
@@ -91,10 +107,12 @@ def layer_decode(
     impl: str | None = None,
 ) -> tuple[torch.Tensor, Params]:
     h = L.norm_apply(cfg, p["norm1"], x_t, impl=impl)
-    y, cache["self"] = L.attn_decode(cfg, p["mixer"], h, pos, cache["self"], kind=spec.attn_kind)
-    x_t = x_t + y
-    h2 = L.norm_apply(cfg, p["norm2"], x_t, impl=impl)
-    return x_t + L.mlp_apply(cfg, p["ffn"], h2), cache
+    if spec.mixer == "attn":
+        y, cache["self"] = L.attn_decode(cfg, p["mixer"], h, pos, cache["self"],
+                                         kind=spec.attn_kind)
+    else:
+        y, cache["self"] = L.mamba_decode(cfg, p["mixer"], h, cache["self"], impl=impl)
+    return _ffn(cfg, spec, p, x_t + y, impl), cache
 
 
 def layer_prefill(
@@ -108,9 +126,18 @@ def layer_prefill(
     impl: str | None = None,
 ) -> tuple[torch.Tensor, Params]:
     """Forward + cache construction: the same math as ``layer_apply``, and the
-    last ``size`` K/V positions stored in the layer's cache."""
+    last ``size`` K/V positions, or the conv window and final SSM state, stored in
+    the layer's cache."""
     B, S, _ = x.shape
     h = L.norm_apply(cfg, p["norm1"], x, impl=impl)
+    if spec.mixer == "mamba":
+        # The reference runs in_proj a second time for the conv window's rows; they
+        # are the same values as the forward's own pre-conv rows, taken here.
+        y, state, xc_raw = L._mamba_forward(cfg, p["mixer"], h, True, impl)
+        K = cfg.conv_kernel
+        conv = F.pad(xc_raw, (0, 0, max(K - 1 - S, 0), 0))[:, -(K - 1):]  # left-pad S < K-1
+        cache = {"self": {"conv": conv.to(cfg.cdtype).contiguous(), "ssm": state}}
+        return _ffn(cfg, spec, p, x + y, impl), cache
     q, k, v = L._qkv(cfg, p["mixer"], h)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
@@ -132,9 +159,7 @@ def layer_prefill(
         ck[:, :, :tail] = ktail.to(ck.dtype)
         cv[:, :, :tail] = vtail.to(cv.dtype)
 
-    x = x + y
-    h2 = L.norm_apply(cfg, p["norm2"], x, impl=impl)
-    return x + L.mlp_apply(cfg, p["ffn"], h2), cache
+    return _ffn(cfg, spec, p, x + y, impl), cache
 
 
 # ===========================================================================

@@ -53,7 +53,8 @@ def test_importing_the_port_loads_no_jax():
         "import sys\n"
         "import repro_torch, repro_torch.configs, repro_torch.models, repro_torch.kernels\n"
         "import repro_torch.models.convert, repro_torch.launch.serve\n"
-        "import repro_torch.kernels.build, repro_torch.kernels.ops\n"
+        "import repro_torch.kernels.build, repro_torch.kernels.ops, repro_torch.kernels.ssd_scan\n"
+        "import repro_torch.configs.mamba2_370m\n"
         "import repro_torch.tree, repro_torch.optim, repro_torch.data, repro_torch.checkpoint\n"
         "import repro_torch.runtime, repro_torch.distributed, repro_torch.launch.train\n"
         "import repro_torch.launch.profile_train, repro_torch.launch.profile_serve\n"

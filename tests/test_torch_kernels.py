@@ -24,6 +24,7 @@ from repro.kernels.flash_attention import flash_attention_fwd as jax_flash_atten
 from repro import kernels as jkernels
 from repro.kernels.rmsnorm import rmsnorm_bwd as jax_rmsnorm_bwd
 from repro.kernels.rmsnorm import rmsnorm_fwd as jax_rmsnorm_fwd
+from repro.kernels.ssd_scan import ssd_scan_fwd as jax_ssd_scan_fwd
 from repro_torch import kernels
 from repro_torch.kernels import build, ops
 from repro_torch.kernels import ref as tref
@@ -32,7 +33,9 @@ from repro_torch.kernels.flash_attention import flash_attention_fwd
 from repro_torch.kernels.rmsnorm import check_args as rms_check_args
 from repro_torch.kernels.rmsnorm import check_bwd_args as rms_check_bwd_args
 from repro_torch.kernels.rmsnorm import rmsnorm_bwd, rmsnorm_fwd
-from test_torch_kernels_cuda import FA_CASES, make_qkv
+from repro_torch.kernels.ssd_scan import check_args as ssd_check_args
+from repro_torch.kernels.ssd_scan import ssd_scan_fwd
+from test_torch_kernels_cuda import FA_CASES, extreme_decay_ssd, make_qkv, make_ssd
 
 DTYPES = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.bfloat16)}
 TOL = {"float32": dict(rtol=2e-5, atol=2e-5), "bfloat16": dict(rtol=2e-2, atol=2e-2)}
@@ -119,10 +122,15 @@ def test_flash_attention_ref_decode_offset_matches_reference():
 
 def test_cpu_dispatch_runs_plain_versions_and_launches_nothing():
     q, k, v = (torch.from_numpy(a) for a in make_qkv(1, 1, 2, 1, 16, 16, 32))
+    ssd_in = [torch.from_numpy(a) for a in make_ssd(0, 1, 8, 2, 4, 1, 4)]
     kernels.reset_launches()
     o = kernels.flash_attention(q, k, v, causal=True)
     y = kernels.rmsnorm(q, torch.ones(32))
-    assert kernels.LAUNCHES == {"rmsnorm_fwd": 0, "rmsnorm_bwd": 0, "flash_attention_fwd": 0}
+    s = kernels.ssd_scan(*ssd_in)
+    assert kernels.LAUNCHES == {
+        "rmsnorm_fwd": 0, "rmsnorm_bwd": 0, "flash_attention_fwd": 0, "ssd_scan_fwd": 0
+    }
+    torch.testing.assert_close(s, tref.ssd_scan_ref(*ssd_in)[0], rtol=0, atol=0)
     torch.testing.assert_close(o, tref.flash_attention_ref(q, k, v, causal=True), rtol=0, atol=0)
     torch.testing.assert_close(y, tref.rmsnorm_ref(q, torch.ones(32)), rtol=0, atol=0)
     # impl="ref" is the plain version on any device
@@ -139,6 +147,10 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         rmsnorm_bwd(q, torch.ones(32), q)
     with pytest.raises(ValueError, match="CUDA kernel"):
         flash_attention_fwd(q, q, q, return_lse=True)
+    with pytest.raises(ValueError, match="CUDA kernel"):
+        ssd_scan_fwd(*(torch.from_numpy(a) for a in make_ssd(0, 1, 8, 2, 4, 1, 4)))
+    with pytest.raises(ValueError, match="impl must be one of"):
+        ops.ssd_scan(*(torch.from_numpy(a) for a in make_ssd(0, 1, 8, 2, 4, 1, 4)), impl="pallas")
     with pytest.raises(ValueError, match="impl must be one of"):
         ops.rmsnorm(q, torch.ones(32), impl="pallas")
     with pytest.raises(ValueError, match="impl must be one of"):
@@ -215,7 +227,7 @@ def test_library_name_follows_the_sources(tmp_path, monkeypatch):
 
 def test_sources_are_the_kernels_of_this_slice():
     names = {p.name for p in build.sources()}
-    assert {"rmsnorm.cu", "flash_attention.cu", "common.cuh"} <= names
+    assert {"rmsnorm.cu", "flash_attention.cu", "ssd_scan.cu", "common.cuh"} <= names
 
 
 # ---------------------------------------------------------------------------
@@ -400,3 +412,181 @@ def test_rmsnorm_bwd_argument_checks(x, w, dy, error):
     else:
         with pytest.raises((ValueError, TypeError), match=error):
             rms_check_bwd_args(x, w, dy)
+
+
+# ---------------------------------------------------------------------------
+# the Mamba-2 SSD scan (K5): the cases of tests/kernels/test_ssd_scan.py
+# ---------------------------------------------------------------------------
+
+# 2e-4, as tests/kernels/test_ssd_scan.py holds the chunked kernel against the
+# stepwise recurrence; bf16 y at 2e-2 (rounded to bf16 after f32 math).  The f32
+# state takes 2e-4 in both dtypes: both packages compute it in f32 from the same
+# bf16 values.
+SSD_TOL = dict(rtol=2e-4, atol=2e-4)
+
+# name: (Bt, S, H, P, G, N, chunk)
+SSD_FWD_CASES = {
+    "chunk16": (2, 64, 4, 16, 2, 32, 16),
+    "chunk32": (2, 64, 4, 16, 2, 32, 32),
+    "chunk64": (2, 64, 4, 16, 2, 32, 64),
+    "single_chunk": (1, 32, 2, 8, 1, 16, 32),
+    "single_chunk_as_4": (1, 32, 2, 8, 1, 16, 8),
+    "sweep_h2_g1": (1, 32, 2, 8, 1, 16, 16),
+    "sweep_h4_g2": (2, 64, 4, 16, 2, 32, 32),
+    "sweep_h4_g4": (2, 128, 4, 8, 4, 16, 16),
+    "sweep_n32_p16": (1, 128, 4, 16, 2, 32, 32),
+}
+
+
+def _ssd_both(arrays, dtype):
+    return [both(a, dtype if i in (0, 1, 3, 4) else "float32") for i, a in enumerate(arrays)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", sorted(SSD_FWD_CASES))
+def test_ssd_scan_plain_versions_match_reference(case, dtype):
+    """The stepwise and chunked plain versions against the reference's Pallas kernel
+    in interpret mode and its stepwise oracle: y and the final state.  x, dt, B, C
+    in ``dtype`` as the reference's test draws them (A stays f32)."""
+    Bt, S, H, P, G, N, chunk = SSD_FWD_CASES[case]
+    (xj, xt), (dtj, dtt), (Aj, At), (Bj, Btt), (Cj, Ct) = _ssd_both(
+        make_ssd(sorted(SSD_FWD_CASES).index(case), Bt, S, H, P, G, N), dtype
+    )
+    want_kernel = jax_ssd_scan_fwd(xj, dtj, Aj, Bj, Cj, chunk=chunk, interpret=True)
+    want_ref = jref.ssd_scan_ref(xj, dtj, Aj, Bj, Cj)
+    y_tol = SSD_TOL if dtype == "float32" else TOL["bfloat16"]
+    for got in (tref.ssd_scan_ref(xt, dtt, At, Btt, Ct),
+                tref.ssd_scan_ref_chunked(xt, dtt, At, Btt, Ct, chunk=chunk)):
+        assert got[0].dtype == xt.dtype and got[1].dtype == torch.float32
+        assert tuple(got[1].shape) == (Bt, H, N, P)
+        for want in (want_kernel, want_ref):
+            np.testing.assert_allclose(f32(got[0]), f32(want[0]), **y_tol)
+            np.testing.assert_allclose(f32(got[1]), f32(want[1]), **SSD_TOL)
+
+
+@pytest.mark.parametrize("S,chunk", [(200, 64), (200, 128), (12, 8), (1, 64), (65, 64)])
+def test_ssd_scan_chunked_takes_a_ragged_sequence(S, chunk):
+    """S not a multiple of the chunk (the reference's chunked forms assert it is):
+    the port's chunked version against the reference's stepwise oracle, G = 2."""
+    (xj, xt), (dtj, dtt), (Aj, At), (Bj, Btt), (Cj, Ct) = _ssd_both(
+        make_ssd(S, 2, S, 4, 16, 2, 32), "float32"
+    )
+    want = jref.ssd_scan_ref(xj, dtj, Aj, Bj, Cj)
+    for got in (tref.ssd_scan_ref_chunked(xt, dtt, At, Btt, Ct, chunk=chunk),
+                tref.ssd_scan_ref(xt, dtt, At, Btt, Ct)):
+        np.testing.assert_allclose(f32(got[0]), f32(want[0]), **SSD_TOL)
+        np.testing.assert_allclose(f32(got[1]), f32(want[1]), **SSD_TOL)
+
+
+@pytest.mark.parametrize("G", [1, 2])
+def test_ssd_step_token_by_token_equals_the_scan(G):
+    """ssd_step run over the sequence gives the scan's y and final state (the serving
+    path), and each step equals the reference's ssd_step."""
+    arrays = make_ssd(2, 1, 16, 2, 8, G, 16)
+    x, dt, A, B, C = (torch.from_numpy(a) for a in arrays)
+    xj, dtj, Aj, Bj, Cj = (jnp.asarray(a) for a in arrays)
+    h = torch.zeros((1, 2, 16, 8))
+    hj = jnp.zeros((1, 2, 16, 8), jnp.float32)
+    ys = []
+    for t in range(16):
+        h, y_t = kernels.ssd_step(h, x[:, t], dt[:, t], A, B[:, t], C[:, t])
+        hj, yj = jkernels.ssd_step(hj, xj[:, t], dtj[:, t], Aj, Bj[:, t], Cj[:, t])
+        np.testing.assert_allclose(f32(y_t), f32(yj), **SSD_TOL)
+        np.testing.assert_allclose(f32(h), f32(hj), **SSD_TOL)
+        ys.append(y_t)
+    y_scan, h_scan = tref.ssd_scan_ref(x, dt, A, B, C)
+    np.testing.assert_allclose(f32(torch.stack(ys, 1)), f32(y_scan), **SSD_TOL)
+    np.testing.assert_allclose(f32(h), f32(h_scan), **SSD_TOL)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_ssd_grads(case):
+    """Gradients of sum(y * g) wrt (x, dt, A, B, C) of the reference op in its ``ref``
+    mode (plain autograd through the stepwise scan); cached across the port's impls."""
+    arrays, g = _ssd_grad_inputs(case)
+    old = jkernels.get_kernel_mode()
+    jkernels.set_kernel_mode("ref")
+    try:
+        _, vjp = jax.vjp(lambda *a: jkernels.ssd_scan(*a), *(jnp.asarray(a) for a in arrays))
+        return tuple(np.asarray(x) for x in vjp(jnp.asarray(g)))
+    finally:
+        jkernels.set_kernel_mode(old)
+
+
+def _ssd_grad_inputs(case):
+    arrays = extreme_decay_ssd() if case == "extreme_decay" else make_ssd(
+        3, *{"one_chunk": (1, 32, 2, 8, 1, 16), "groups": (2, 48, 4, 8, 2, 16),
+             "ragged": (1, 150, 2, 8, 1, 16)}[case])
+    g = np.random.RandomState(4).randn(*arrays[0].shape).astype(np.float32)
+    return arrays, g
+
+
+@pytest.mark.parametrize("impl", [None, "chunked", "ref"])
+@pytest.mark.parametrize("case", ["one_chunk", "groups", "ragged", "extreme_decay"])
+def test_ssd_scan_gradient_matches_reference(impl, case):
+    """autograd through ops.ssd_scan against jax.vjp of the reference op in ``ref``
+    mode: on the CPU impl=None is the Function (plain forward, chunked backward),
+    "chunked" and "ref" plain autograd.  At dt·A down to -62 ("extreme_decay", where
+    the reference's chunked backward gives NaN) the port's chunked backward stays
+    finite and agrees with the stepwise one."""
+    arrays, g = _ssd_grad_inputs(case)
+    want = _jax_ssd_grads(case)
+    ins = [torch.from_numpy(a).requires_grad_(True) for a in arrays]
+    y = ops.ssd_scan(*ins, impl=impl)
+    if impl is None:
+        assert type(y.grad_fn).__name__ == "_SSDScanBackward"
+    got = torch.autograd.grad(y, ins, torch.from_numpy(g))
+    for a, b in zip(got, want, strict=True):
+        assert bool(torch.isfinite(a).all())
+        np.testing.assert_allclose(f32(a), f32(b), **SSD_TOL)
+
+
+def test_ssd_scan_serving_form_returns_the_state():
+    ins = [torch.from_numpy(a) for a in make_ssd(5, 2, 20, 4, 8, 2, 16)]
+    for impl in (None, "chunked", "ref"):
+        y, h = ops.ssd_scan(*ins, return_final_state=True, impl=impl)
+        want_y, want_h = tref.ssd_scan_ref(*ins)
+        np.testing.assert_allclose(f32(y), f32(want_y), **SSD_TOL)
+        np.testing.assert_allclose(f32(h), f32(want_h), **SSD_TOL)
+    with torch.no_grad():
+        assert ops.ssd_scan(ins[0].clone().requires_grad_(True), *ins[1:]).grad_fn is None
+
+
+def _ssd_args(Bt=1, S=8, H=4, P=8, G=2, N=8, dtype=torch.float32):
+    return [
+        torch.zeros(Bt, S, H, P, dtype=dtype), torch.zeros(Bt, S, H), -torch.ones(H),
+        torch.zeros(Bt, S, G, N, dtype=dtype), torch.zeros(Bt, S, G, N, dtype=dtype),
+    ]
+
+
+def _with(i, t):
+    args = _ssd_args()
+    args[i] = t
+    return args
+
+
+@pytest.mark.parametrize(
+    "args,error",
+    [
+        (lambda: _ssd_args(), None),
+        (lambda: _ssd_args(dtype=torch.bfloat16), None),
+        (lambda: _ssd_args(H=3, G=2), "multiple of groups"),
+        (lambda: _ssd_args(P=6), "multiples of 4"),
+        (lambda: _ssd_args(N=10), "multiples of 4"),
+        (lambda: _ssd_args(dtype=torch.float16), "float32 or all bfloat16"),
+        (lambda: _with(3, torch.zeros(1, 8, 2, 8, dtype=torch.bfloat16)), "float32 or all"),
+        (lambda: _with(1, torch.zeros(1, 8, 4, dtype=torch.bfloat16)), "float32 dt and A"),
+        (lambda: _with(2, -torch.ones(4, dtype=torch.float64)), "float32 dt and A"),
+        (lambda: _with(0, torch.zeros(1, 8, 8, 4).transpose(2, 3)), "contiguous"),
+        (lambda: _with(4, torch.zeros(1, 8, 8, 2).transpose(2, 3)), "contiguous"),
+        (lambda: _with(1, torch.zeros(1, 7, 4)), "do not match"),
+        (lambda: _with(2, -torch.ones(3)), "do not match"),
+        (lambda: _with(0, torch.zeros(1, 8, 4)), "need x"),
+    ],
+)
+def test_ssd_scan_argument_checks(args, error):
+    if error is None:
+        ssd_check_args(*args())
+    else:
+        with pytest.raises((ValueError, TypeError), match=error):
+            ssd_check_args(*args())

@@ -7,12 +7,17 @@ This file imports no JAX, so it runs on the GPU machine:
 Without a CUDA device every test skips.  The shapes are the cases of
 ``tests/kernels/test_flash_attention.py`` (shared with ``test_torch_kernels.py``),
 ragged edges the TPU kernel's tiling could not take, and the rmsnorm shapes of
-the gemma3-1b serving path and the internlm2-1.8b training path.  Tolerances: 2e-5
-in f32 (the same f32 math summed in another order), 2e-2 in bf16 (outputs rounded
-to bf16 after f32 math); the rmsnorm backward takes 1e-4/1e-5, as
+the gemma3-1b serving path and the internlm2-1.8b training path; for the SSD scan
+(K5) the cases of ``tests/kernels/test_ssd_scan.py``, a ragged sequence, the
+mamba2-reduced shape and the mamba2-370m serving shape.  Tolerances: 2e-5 in f32
+(the same f32 math summed in another order), 2e-2 in bf16 (outputs rounded to bf16
+after f32 math); the rmsnorm backward takes 1e-4/1e-5, as
 ``tests/kernels/test_rmsnorm.py`` does (dw sums thousands of rows in another
 order), and attention gradients 2e-4, as ``tests/kernels/test_flash_attention.py``
-does.
+does.  The SSD scan takes 2e-4 in f32, as ``tests/kernels/test_ssd_scan.py`` holds
+the chunked kernel against the stepwise recurrence (the chunk's decays are
+differences of a cumsum, not products of per-step factors); its bf16 y takes 2e-2
+and its f32 state 2e-4 (both compute in f32 from the same bf16 inputs).
 """
 
 import numpy as np
@@ -24,12 +29,14 @@ from repro_torch.kernels import ops
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels.flash_attention import flash_attention_fwd
 from repro_torch.kernels.rmsnorm import rmsnorm_bwd, rmsnorm_fwd
+from repro_torch.kernels.ssd_scan import ssd_scan_fwd
 from repro_torch.models import model as tmodel
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 TOL = {"float32": dict(rtol=2e-5, atol=2e-5), "bfloat16": dict(rtol=2e-2, atol=2e-2)}
 BWD_TOL = dict(rtol=1e-4, atol=1e-5)
 GRAD_TOL = dict(rtol=2e-4, atol=2e-4)
+SSD_TOL = dict(rtol=2e-4, atol=2e-4)
 
 
 def assert_dw_close(got, want, x, w, dy):
@@ -51,6 +58,43 @@ FA_CASES = {
     "cross_sq_ne_skv": (2, 4, 4, 64, 128, 32, False, None, 32, 64),
     "head_dim_128": (1, 2, 1, 64, 64, 128, True, None, 32, 32),
 }
+
+
+# name: (Bt, S, H, P, G, N): the shapes of tests/kernels/test_ssd_scan.py (chunk
+# sweep, single chunk, property-sweep corners), a ragged S with G > 1, and the
+# mamba2-reduced serving shape (H = 8 heads of 16, N = 16, a 12-token prompt)
+SSD_CASES = {
+    "chunk_sweep": (2, 64, 4, 16, 2, 32),
+    "single_chunk": (1, 32, 2, 8, 1, 16),
+    "groups_4_of_4": (2, 128, 4, 8, 4, 16),
+    "groups_2_of_1": (1, 32, 2, 16, 1, 32),
+    "ragged_200": (2, 200, 4, 16, 2, 32),
+    "mamba2_reduced": (2, 12, 8, 16, 1, 16),
+}
+
+
+def make_ssd(seed, Bt, S, H, P, G, N):
+    """x, dt, A, B, C as tests/kernels/test_ssd_scan.py draws them: dt in
+    [0.01, 0.2], A = -exp(0.5·normal)."""
+    rs = np.random.RandomState(seed)
+    x = rs.randn(Bt, S, H, P).astype(np.float32)
+    dt = (0.01 + 0.19 * rs.rand(Bt, S, H)).astype(np.float32)
+    A = (-np.exp(0.5 * rs.randn(H))).astype(np.float32)
+    B = rs.randn(Bt, S, G, N).astype(np.float32)
+    C = rs.randn(Bt, S, G, N).astype(np.float32)
+    return x, dt, A, B, C
+
+
+def extreme_decay_ssd():
+    """The inputs of test_ssd_scan.py's known chunked-backward fault: dt·A down to -62."""
+    Bt, S, H, P, N = 1, 16, 2, 4, 4
+    return (
+        np.ones((Bt, S, H, P), np.float32),
+        np.full((Bt, S, H), 3.9, np.float32),
+        np.asarray([-1.0, -16.0], np.float32),
+        np.ones((Bt, S, 1, N), np.float32),
+        np.ones((Bt, S, 1, N), np.float32),
+    )
 
 
 def make_qkv(seed, B, H, KVH, Sq, Skv, D):
@@ -226,3 +270,54 @@ def test_bf16_logits_product_and_its_gradient(cuda):
     for got, ex in ((da, gd @ bd.T), (db, ad.T @ gd)):
         got, ex = f32(got), ex.cpu().numpy()
         assert (np.abs(got - ex) <= 2**-7 * np.abs(ex) + 1e-5 * np.abs(ex).max()).all()
+
+
+def _ssd_on(cuda, arrays, dtype):
+    """x, B, C in ``dtype``; dt and A in f32, as the model hands them to the kernel."""
+    x, dt, A, B, C = (torch.from_numpy(a).to(cuda) for a in arrays)
+    return x.to(DTYPES[dtype]), dt, A, B.to(DTYPES[dtype]), C.to(DTYPES[dtype])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", sorted(SSD_CASES) + ["serve_mamba2_370m"])
+def test_ssd_scan_kernel_matches_stepwise(cuda, case, dtype):
+    shape = SSD_CASES.get(case, (4, 1024, 32, 64, 1, 128))
+    x, dt, A, B, C = _ssd_on(cuda, make_ssd(9, *shape), dtype)
+    before = kernels.LAUNCHES["ssd_scan_fwd"]
+    y, hT = ssd_scan_fwd(x, dt, A, B, C)
+    assert kernels.LAUNCHES["ssd_scan_fwd"] == before + 1
+    Bt, S, H, P, G, N = shape
+    assert y.dtype == x.dtype and y.shape == x.shape
+    assert hT.dtype == torch.float32 and hT.shape == (Bt, H, N, P)
+    want_y, want_h = tref.ssd_scan_ref(x, dt, A, B, C)
+    np.testing.assert_allclose(f32(y), f32(want_y), **(SSD_TOL if dtype == "float32" else
+                                                       TOL["bfloat16"]))
+    np.testing.assert_allclose(f32(hT), f32(want_h), **SSD_TOL)
+
+
+def test_ssd_scan_kernel_extreme_decay_is_finite(cuda):
+    x, dt, A, B, C = _ssd_on(cuda, extreme_decay_ssd(), "float32")
+    y, hT = ssd_scan_fwd(x, dt, A, B, C)
+    want_y, want_h = tref.ssd_scan_ref(x, dt, A, B, C)
+    assert bool(torch.isfinite(y).all()) and bool(torch.isfinite(hT).all())
+    np.testing.assert_allclose(f32(y), f32(want_y), **SSD_TOL)
+    np.testing.assert_allclose(f32(hT), f32(want_h), **SSD_TOL)
+
+
+@pytest.mark.parametrize("case", ["single_chunk", "ragged_200", "extreme_decay"])
+def test_ssd_scan_function_gradients(cuda, case):
+    """K5 forward + the plain chunked backward against plain autograd through the
+    stepwise recurrence (impl="ref"), f32, at 2e-4 as test_ssd_scan.py's TestGrad."""
+    arrays = extreme_decay_ssd() if case == "extreme_decay" else make_ssd(10, *SSD_CASES[case])
+    g = torch.from_numpy(np.random.RandomState(11).randn(*arrays[0].shape).astype(np.float32))
+    grads = {}
+    for impl in (None, "chunked", "ref"):
+        ins = [torch.from_numpy(a).to(cuda).requires_grad_(True) for a in arrays]
+        before = kernels.LAUNCHES["ssd_scan_fwd"]
+        y = ops.ssd_scan(*ins, impl=impl)
+        assert kernels.LAUNCHES["ssd_scan_fwd"] - before == (1 if impl is None else 0)
+        grads[impl] = torch.autograd.grad(y, ins, g.to(cuda))
+    for impl in (None, "chunked"):
+        for a, b in zip(grads[impl], grads["ref"]):
+            assert bool(torch.isfinite(a).all())
+            np.testing.assert_allclose(f32(a), f32(b), **SSD_TOL)

@@ -199,13 +199,14 @@ def test_attn_decode_matches(kind, max_len, pos):
 
 
 def _unstack_caches(jc, jcaches):
-    """The reference's caches, stacked per segment, as the port's per-layer list."""
+    """The reference's caches, stacked per segment, as the port's per-layer list
+    (``k``/``v`` of an attention layer, ``conv``/``ssm`` of a Mamba layer)."""
     out = []
     for (pattern, reps), seg in zip(jc.scan_segments(), jcaches):
         for r in range(reps):
             for i in range(len(pattern)):
                 c = seg["layers"][i]["self"]
-                out.append({n: np.asarray(c[n][r] if reps > 1 else c[n]) for n in ("k", "v")})
+                out.append({n: np.asarray(a[r] if reps > 1 else a) for n, a in c.items()})
     return out
 
 
@@ -221,8 +222,9 @@ def _run_slice(jc, tc, B=2, S=12, steps=4, max_len=32):
     assert tl.dtype == torch.float32 and tl.shape == (B, jc.vocab)
     assert_close(tl, jl, PREFILL_TOL)
     for got, want in zip(tcaches, _unstack_caches(jc, jcaches), strict=True):
-        assert_close(got["self"]["k"], want["k"], PREFILL_TOL)
-        assert_close(got["self"]["v"], want["v"], PREFILL_TOL)
+        assert sorted(got["self"]) == sorted(want)
+        for name in want:
+            assert_close(got["self"][name], want[name], PREFILL_TOL)
     for i in range(steps):
         jl, jcaches = jmodels.decode_step(jc, jp, jnp.asarray(toks[:, S + i]), jnp.int32(S + i),
                                           jcaches)
@@ -302,3 +304,136 @@ def test_unported_layers_raise():
     cfg = tmodels.ModelConfig(layer_period=(tmodels.LayerSpec(moe=True),), **F32)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tmodels.init_params(cfg, device="cpu")
+
+
+@pytest.mark.parametrize("spec", [dict(cross_attn=True), dict(mixer="mamba", moe=True)])
+def test_unported_mamba_and_cross_layers_raise(spec):
+    cfg = tmodels.ModelConfig(layer_period=(tmodels.LayerSpec(**spec),), **F32)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tmodels.init_params(cfg, device="cpu")
+
+
+# ---------------------------------------------------------------------------
+# the Mamba-2 mixer and the models built from it
+# ---------------------------------------------------------------------------
+
+MAMBA = dict(name="m", n_layers=4, d_model=64, n_heads=0, n_kv_heads=0, d_ff=0, vocab=128,
+             ssm_state=16, ssm_head_dim=16, tie_embeddings=True, **F32)
+
+
+def mamba_pair(**kw):
+    jc = jmodels.ModelConfig(layer_period=(jmodels.LayerSpec(mixer="mamba", ffn=False),),
+                             **{**MAMBA, **kw})
+    tc = tmodels.ModelConfig(layer_period=(tmodels.LayerSpec(mixer="mamba", ffn=False),),
+                             **{**MAMBA, **kw})
+    return jc, tc
+
+
+def _mamba_params(jc, seed=6):
+    """The reference's mixer init with its vectors moved off their defaults (a
+    ones/zeros vector would hide a transposed or misplaced leaf)."""
+    p = to_np(jL.mamba_init(jc, jax.random.PRNGKey(seed)))
+    rs = np.random.RandomState(seed)
+    for name in ("D_skip", "dt_bias", "gate_norm"):
+        p[name] = (p[name] + 0.3 * rs.randn(*p[name].shape)).astype(np.float32)
+    return p, {k: t(v) for k, v in p.items()}
+
+
+@pytest.mark.parametrize("S", [12, 1])
+def test_mamba_apply_matches(jax_mode, S):
+    jc, tc = mamba_pair()
+    pj, pt = _mamba_params(jc)
+    x = _x((2, S, 64))
+    want = jL.mamba_apply(jc, pj, jnp.asarray(x))
+    assert_close(tL.mamba_apply(tc, pt, t(x)), want, LAYER_TOL)
+    want_y, want_h = jL.mamba_apply(jc, pj, jnp.asarray(x), return_state=True)
+    got_y, got_h = tL.mamba_apply(tc, pt, t(x), return_state=True)
+    assert_close(got_y, want_y, LAYER_TOL)
+    assert_close(got_h, want_h, LAYER_TOL)
+
+
+def test_mamba_decode_matches():
+    jc, tc = mamba_pair()
+    pj, pt = _mamba_params(jc)
+    jcache = jL.mamba_cache_init(jc, 2)
+    conv = _x(jcache["conv"].shape, 7)
+    ssm = _x(jcache["ssm"].shape, 8)
+    x_t = _x((2, 1, 64), 9)
+    jy, jnew = jL.mamba_decode(jc, pj, jnp.asarray(x_t),
+                               {"conv": jnp.asarray(conv), "ssm": jnp.asarray(ssm)})
+    tcache = {"conv": t(conv), "ssm": t(ssm)}
+    init = tL.mamba_cache_init(tc, 2, CPU)
+    assert {k: tuple(v.shape) for k, v in init.items()} == {
+        k: v.shape for k, v in jcache.items()}
+    assert init["conv"].dtype == torch.float32 and not init["ssm"].any()
+    ty, tnew = tL.mamba_decode(tc, pt, t(x_t), tcache)
+    assert_close(ty, jy, LAYER_TOL)
+    assert_close(tnew["conv"], jnew["conv"], LAYER_TOL)
+    assert_close(tnew["ssm"], jnew["ssm"], LAYER_TOL)
+    assert tnew["ssm"] is tcache["ssm"] and tnew["conv"] is tcache["conv"]  # in place
+
+
+@pytest.mark.parametrize("S", [12, 2])
+def test_mamba_prefill_caches_match(jax_mode, S):
+    """layer_prefill of a Mamba layer: its output, the last K-1 pre-conv rows (left
+    padded with zeros when the prompt is shorter, S = 2 < K-1 = 3) and the final
+    SSM state."""
+    jc, tc = mamba_pair()
+    spec_j, spec_t = jc.layer_period[0], tc.layer_period[0]
+    pj, pt = _mamba_params(jc)
+    lj = {"norm1": np.ones(64, np.float32), "mixer": pj}
+    lt = {"norm1": torch.ones(64), "mixer": pt}
+    x = _x((2, S, 64))
+    pos = np.arange(S)
+    jy, jcache = jM.layer_prefill(jc, spec_j, lj, jnp.asarray(x), jnp.asarray(pos), 16)
+    ty, tcache = tmodels.model.layer_prefill(tc, spec_t, lt, t(x), torch.from_numpy(pos), 16)
+    assert_close(ty, jy, LAYER_TOL)
+    assert tuple(tcache["self"]["conv"].shape) == (2, jc.conv_kernel - 1, 128 + 2 * 16)
+    assert_close(tcache["self"]["conv"], jcache["self"]["conv"], LAYER_TOL)
+    assert_close(tcache["self"]["ssm"], jcache["self"]["ssm"], LAYER_TOL)
+
+
+def test_slice_mamba2_reduced(jax_mode):
+    jc = jconfigs.get_config("mamba2-370m", reduced=True)
+    tc = tconfigs.get_config("mamba2-370m", reduced=True)
+    _run_slice(jc, tc)
+
+
+HYBRID = dict(name="hyb", n_layers=5, d_model=64, n_heads=4, n_kv_heads=2, d_ff=128,
+              vocab=128, ssm_state=16, ssm_head_dim=16, **F32)
+
+
+def test_slice_hybrid_mamba_attention(jax_mode):
+    """A period of one Mamba and one attention layer, both with the dense FFN (no
+    MoE): two repeats stacked plus a trailing Mamba layer."""
+    jc = jmodels.ModelConfig(layer_period=(jmodels.LayerSpec(mixer="mamba"),
+                                           jmodels.LayerSpec(mixer="attn")), **HYBRID)
+    tc = tmodels.ModelConfig(layer_period=(tmodels.LayerSpec(mixer="mamba"),
+                                           tmodels.LayerSpec(mixer="attn")), **HYBRID)
+    assert [r for _, r in jc.scan_segments()] == [2, 1]
+    _run_slice(jc, tc)
+
+
+def test_params_from_jax_carries_mamba_leaves():
+    """Matrices in the param dtype, the mixer's vectors and the norms in f32, no
+    norm2/ffn on a mixer-only layer; stacked layers unstack in depth order."""
+    jc, tc = mamba_pair(param_dtype="bfloat16")
+    jp = to_np(jmodels.init_params(jc, jax.random.PRNGKey(0)))
+    tp = params_from_jax(tc, jp, device="cpu")
+    stacked = jp["segments"][0]["layers"][0]
+    assert len(tp["layers"]) == 4
+    for i, lp in enumerate(tp["layers"]):
+        assert sorted(lp) == ["mixer", "norm1"]
+        assert sorted(lp["mixer"]) == sorted(stacked["mixer"])
+        for name, leaf in lp["mixer"].items():
+            want = stacked["mixer"][name][i]
+            assert leaf.dtype == (torch.bfloat16 if want.dtype.name == "bfloat16"
+                                  else torch.float32), name
+            np.testing.assert_array_equal(leaf.to(torch.float32).numpy(),
+                                          np.asarray(want, np.float32))
+    assert tp["layers"][0]["mixer"]["in_proj"].dtype == torch.bfloat16
+    assert tp["layers"][0]["mixer"]["A_log"].dtype == torch.float32
+    shapes = params_from_jax(tc, jp, "cpu")
+    mine = tmodels.init_params(tc, seed=0, device="cpu")
+    for a, b in zip(jax.tree.leaves(mine), jax.tree.leaves(shapes)):
+        assert a.shape == b.shape and a.dtype == b.dtype

@@ -6,8 +6,9 @@
   tokens: 3e-4 for the prefill logits and 5e-4 for each decode step, the
   reference's own prefill/decode tolerances (``tests/models/test_models.py``).
 * The kernels' argument checks and launch counts, applied on the CPU: the main
-  path hands every kernel operands it takes, K4 once per layer in prefill and
-  never in decode, K2 twice per layer plus once for the final norm.
+  path hands every kernel operands it takes, K4 (gemma3) or K5 (mamba2) once per
+  layer in prefill and never in decode, K2 twice per layer plus once for the final
+  norm in prefill and in every decode step.
 """
 
 import ast
@@ -26,6 +27,7 @@ from repro_torch import resolve_device
 from repro_torch.kernels import LAUNCHES, ops, ref, reset_launches
 from repro_torch.kernels.flash_attention import check_args as fa_check_args
 from repro_torch.kernels.rmsnorm import check_args as rms_check_args
+from repro_torch.kernels.ssd_scan import check_args as ssd_check_args
 from repro_torch.launch import serve
 from repro_torch.models import init_params
 from repro_torch.models.convert import params_from_jax
@@ -80,7 +82,7 @@ def _jax_greedy_loop(cfg, params, prompts, gen):
     return first, np.stack([np.asarray(t) for t in toks], axis=1), step_logits
 
 
-@pytest.mark.parametrize("arch", ["gemma3-1b", "internlm2-1.8b"])
+@pytest.mark.parametrize("arch", ["gemma3-1b", "internlm2-1.8b", "mamba2-370m"])
 def test_greedy_decode_matches_reference_loop(arch):
     jc = jconfigs.get_config(arch, reduced=True)
     tc = tconfigs.get_config(arch, reduced=True)
@@ -122,31 +124,53 @@ def checked_kernels(monkeypatch):
         LAUNCHES["rmsnorm_fwd"] += 1
         return ref.rmsnorm_ref(x, w, eps)
 
+    def ssd_scan_fwd(x, dt, A, B, C):
+        ssd_check_args(x, dt, A, B, C)
+        LAUNCHES["ssd_scan_fwd"] += 1
+        return ref.ssd_scan_ref(x, dt, A, B, C)
+
     monkeypatch.setattr(ops, "flash_attention_fwd", flash_attention_fwd)
     monkeypatch.setattr(ops, "rmsnorm_fwd", rmsnorm_fwd)
+    monkeypatch.setattr(ops, "ssd_scan_fwd", ssd_scan_fwd)
     monkeypatch.setattr(ops, "_use_kernel", lambda x, impl: impl is None)
     reset_launches()
     yield
     reset_launches()
 
 
+@pytest.mark.parametrize("arch", ["gemma3-1b", "mamba2-370m"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_main_path_hands_kernels_what_they_take(checked_kernels, dtype):
+def test_main_path_hands_kernels_what_they_take(checked_kernels, dtype, arch):
+    """Per prefill K4 (attention layers) or K5 (Mamba layers) once per layer and K2
+    twice per layer plus the final norm; per decode step K2 alone (mamba2-370m at
+    full width: 48 K5 and 97 K2 per prefill, 97 K2 per step)."""
     cfg = dataclasses.replace(
-        tconfigs.get_config("gemma3-1b", reduced=True), param_dtype=dtype, compute_dtype=dtype
+        tconfigs.get_config(arch, reduced=True), param_dtype=dtype, compute_dtype=dtype
     )
     L, B, P, GEN = cfg.n_layers, 2, 12, 3
+    mixer_kernel = "flash_attention_fwd" if arch == "gemma3-1b" else "ssd_scan_fwd"
     params = init_params(cfg, seed=0, device="cpu")
     prompts = serve.make_prompts(cfg, B, P, torch.device("cpu"))
     logits, caches = serve.serve_prefill(cfg, params, prompts, P + GEN)
-    assert LAUNCHES == {"flash_attention_fwd": L, "rmsnorm_fwd": 2 * L + 1, "rmsnorm_bwd": 0}
+    want = {"flash_attention_fwd": 0, "ssd_scan_fwd": 0, "rmsnorm_fwd": 2 * L + 1,
+            "rmsnorm_bwd": 0}
+    assert LAUNCHES == {**want, mixer_kernel: L}
     reset_launches()
     toks, kept = serve.serve_decode(cfg, params, logits, caches, P, GEN, keep_logits=True)
     assert LAUNCHES == {
-        "flash_attention_fwd": 0, "rmsnorm_fwd": (2 * L + 1) * GEN, "rmsnorm_bwd": 0
+        "flash_attention_fwd": 0, "ssd_scan_fwd": 0, "rmsnorm_fwd": (2 * L + 1) * GEN,
+        "rmsnorm_bwd": 0,
     }
     assert all(bool(torch.isfinite(k).all()) and k.dtype == torch.float32 for k in kept)
     # impl="ref" reaches no kernel
     reset_launches()
     serve.serve_prefill(cfg, params, prompts, P + GEN, impl="ref")
-    assert LAUNCHES == {"flash_attention_fwd": 0, "rmsnorm_fwd": 0, "rmsnorm_bwd": 0}
+    assert LAUNCHES == {"flash_attention_fwd": 0, "ssd_scan_fwd": 0, "rmsnorm_fwd": 0,
+                        "rmsnorm_bwd": 0}
+
+
+def test_full_width_mamba2_counts_are_48_97():
+    cfg = tconfigs.get_config("mamba2-370m")
+    assert cfg.n_layers == 48 and all(s.mixer == "mamba" and not s.ffn
+                                      for s in cfg.layer_specs())
+    assert (cfg.n_layers, 2 * cfg.n_layers + 1) == (48, 97)

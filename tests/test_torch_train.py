@@ -39,6 +39,7 @@ from repro_torch.kernels import LAUNCHES, ops, ref, reset_launches
 from repro_torch.kernels.flash_attention import check_args as fa_check_args
 from repro_torch.kernels.rmsnorm import check_args as rms_check_args
 from repro_torch.kernels.rmsnorm import check_bwd_args as rms_check_bwd_args
+from repro_torch.kernels.ssd_scan import check_args as ssd_check_args
 from repro_torch.launch import train as train_main
 from repro_torch.models import loss_fn
 from repro_torch.models.convert import params_from_jax
@@ -133,6 +134,28 @@ def test_loss_and_grads_match_reference(jax_mode, name, impl):
     assert_grads_close(grads, params_from_jax(tc, jgrads, device="cpu"))
 
 
+@pytest.mark.parametrize("impl", [None, "chunked", "ref"])
+def test_mamba2_loss_and_grads_match_reference_ref_mode(impl):
+    """One mamba2-reduced f32 step's loss and every gradient against the reference in
+    its ``ref`` mode.  (Its chunked and Pallas modes give non-finite gradients on
+    these weights: the chunked backward's 0·inf, tests/kernels/test_ssd_scan.py:92;
+    the port's chunked backward masks before the exp.)  On the CPU impl=None is the
+    SSD Function (plain forward, chunked backward)."""
+    old = jkernels.get_kernel_mode()
+    jkernels.set_kernel_mode("ref")
+    try:
+        jp, jloss, jnll, jgrads = jax_value_and_grad("mamba2-370m", "ref")
+    finally:
+        jkernels.set_kernel_mode(old)
+    _, tc = configs("mamba2-370m")
+    params = params_from_jax(tc, jp, device="cpu")
+    loss, metrics, grads = port_value_and_grad(tc, params, _batch(tc.vocab), impl)
+    np.testing.assert_allclose(loss.item(), jloss, rtol=LOSS_RTOL)
+    np.testing.assert_allclose(metrics["nll"].item(), jnll, rtol=LOSS_RTOL)
+    assert all(bool(torch.isfinite(g).all()) for g in T.leaves(grads))
+    assert_grads_close(grads, params_from_jax(tc, jgrads, device="cpu"))
+
+
 @pytest.mark.parametrize("name", CONFIGS)
 def test_remat_on_and_off_give_the_same_gradients(name):
     """Checkpointed layers rerun the same forward on the same inputs: the same
@@ -198,9 +221,15 @@ def checked_kernels(monkeypatch):
         LAUNCHES["rmsnorm_bwd"] += 1
         return ref.rmsnorm_bwd_ref(x, w, dy, eps)
 
+    def ssd_scan_fwd(x, dt, A, B, C):
+        ssd_check_args(x, dt, A, B, C)
+        LAUNCHES["ssd_scan_fwd"] += 1
+        return ref.ssd_scan_ref(x, dt, A, B, C)
+
     monkeypatch.setattr(ops, "flash_attention_fwd", flash_attention_fwd)
     monkeypatch.setattr(ops, "rmsnorm_fwd", rmsnorm_fwd)
     monkeypatch.setattr(ops, "rmsnorm_bwd", rmsnorm_bwd)
+    monkeypatch.setattr(ops, "ssd_scan_fwd", ssd_scan_fwd)
     monkeypatch.setattr(ops, "_use_kernel", lambda x, impl: impl is None)
     reset_launches()
     yield
@@ -208,11 +237,13 @@ def checked_kernels(monkeypatch):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("name", CONFIGS)
+@pytest.mark.parametrize("name", CONFIGS + ["mamba2-370m"])
 def test_train_step_hands_kernels_what_they_take(checked_kernels, name, dtype):
-    """Per step, with L layers of which R are rematerialised: K4 L + R times, K2
-    2L + 1 + 2R times, K3 2L + 1 times (internlm2-1.8b: 48, 97 and 49); the plain
-    versions (impl="ref") launch nothing."""
+    """Per step, with L layers of which R are rematerialised: the mixer's kernel (K4,
+    or K5 for mamba2's Mamba layers) L + R times, K2 2L + 1 + 2R times (norm1 and
+    norm2, or norm1 and the gate norm), K3 2L + 1 times (internlm2-1.8b: 48, 97 and
+    49); the plain versions (impl="ref") launch nothing."""
+    mixer_kernel = "ssd_scan_fwd" if name == "mamba2-370m" else "flash_attention_fwd"
     _, tc = configs(name)
     tc = dataclasses.replace(tc, param_dtype=dtype, compute_dtype=dtype)
     L = tc.n_layers
@@ -222,7 +253,8 @@ def test_train_step_hands_kernels_what_they_take(checked_kernels, name, dtype):
     state = make_train_state_fn(tc, opt, device="cpu")()
     ds = SyntheticLM(DataConfig(vocab=tc.vocab, seq_len=16, global_batch=2))
     state, metrics = make_train_step(tc, opt)(state, to_device(ds.batch(0), CPU))
-    assert LAUNCHES == {"flash_attention_fwd": L + R, "rmsnorm_fwd": 2 * L + 1 + 2 * R,
+    assert LAUNCHES == {"flash_attention_fwd": 0, "ssd_scan_fwd": 0,
+                        mixer_kernel: L + R, "rmsnorm_fwd": 2 * L + 1 + 2 * R,
                         "rmsnorm_bwd": 2 * L + 1}
     assert bool(torch.isfinite(metrics["loss"])) and int(state["step"]) == 1
     assert all(a.dtype == b.dtype for a, b in zip(
@@ -230,7 +262,8 @@ def test_train_step_hands_kernels_what_they_take(checked_kernels, name, dtype):
             "params"])))
     reset_launches()
     make_train_step(tc, opt, impl="ref")(state, to_device(ds.batch(1), CPU))
-    assert LAUNCHES == {"flash_attention_fwd": 0, "rmsnorm_fwd": 0, "rmsnorm_bwd": 0}
+    assert LAUNCHES == {"flash_attention_fwd": 0, "ssd_scan_fwd": 0, "rmsnorm_fwd": 0,
+                        "rmsnorm_bwd": 0}
 
 
 def test_logits_product_gradient_keeps_the_f32_cotangent():
