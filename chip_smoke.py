@@ -44,7 +44,23 @@ Drives ``repro_torch`` only (never ``repro`` or ``jax``), on one CUDA device:
 15. runs the same prefill with the plain versions and compares the logits, in bf16
     and with the same weights widened to f32;
 16. holds the gradients of the SSD op's autograd Function (K5 forward, plain
-    chunked backward) against plain autograd through the stepwise recurrence.
+    chunked backward) against plain autograd through the stepwise recurrence;
+17. holds K1, the Triton kernels generated per fusion cluster of the Myia
+    compiler, against their torch oracles: every elementwise primitive of the
+    fusion tier in f32 and bf16 with broadcast operands of rank 3, 1 and 0, and
+    every reduction root over leading, trailing, middle, two and all axes; then
+    the four clusters of the Myia train step at their full shapes, timed against
+    their oracles;
+18. checks the Myia LM train step at tiny dims in f32, the card with the K1
+    kernels against the CPU with the oracles (loss and gradients);
+19. trains ``--compiler myia`` at full width (internlm2-1.8b's V 92544, D 2048,
+    H 8192, f32, SGD): batch 8 x 256, 1 untimed and 20 timed steps through
+    ``repro_torch.launch.myia_step``, counting the K1 launches of every step: the
+    plan's 4 clusters (3 map, 1 reduce) in exactly 5 launches (3 map, and the
+    reduce's two passes), then two steps of ``python -m
+    repro_torch.launch.train --compiler myia`` with its checkpoint;
+20. computes one full-width step's loss and gradients with the K1 kernels and in
+    kernel mode ``"ref"`` (the oracles) from the same state, and compares them.
 
 A failed phase raises and the script exits non-zero.  The last lines are the
 kernels' record, the card's name and power limit, and the device line.
@@ -122,6 +138,20 @@ SSD_TOL = dict(rtol=2e-4, atol=2e-4)
 MAMBA_F32_REL_BOUND = 1e-3
 MAMBA_BF16_REL_BOUND = 0.5
 
+# K1 against its oracles (phase 17): the bounds of repro_torch.kernels.k1_cases,
+# MAP_ULPS and REDUCE_TOL, as tests/test_torch_kernels_cuda.py holds them.
+# The Myia LM step (phases 18 and 20) in f32.  Card against CPU (18): the same
+# program, but cuBLAS and the CPU sum the matmuls in other orders; the loss within
+# 1e-5 relative, each gradient within 1e-4 of its largest element.  Kernels against
+# oracles on the card from the same state (20): only the four clusters differ (map
+# kernels by at most an ulp, the cross-entropy sum in another order); the loss within
+# 1e-6 relative, each gradient within 1e-5 of its largest element.
+MYIA_CPU_LOSS_REL, MYIA_CPU_GRAD_REL = 1e-5, 1e-4
+MYIA_REF_LOSS_REL, MYIA_REF_GRAD_REL = 1e-6, 1e-5
+# the Myia LM step at full width: internlm2-1.8b's vocab and width (V 92544, D 2048,
+# H 8192), the reference driver's batch and sequence, plain SGD
+MYIA_B, MYIA_S, MYIA_LR, MYIA_STEPS = 8, 256, 3e-4, 20
+
 # (Bt, S, H, P, G, N): the shapes of the SSD kernel tests, a ragged S with G > 1, and
 # the mamba2-reduced shape
 SSD_TEST_CASES = [
@@ -175,6 +205,245 @@ def visible_pairs(Sq: int, Skv: int, causal: bool, window: int | None) -> int:
         lo = max(0, i - window + 1) if window is not None else 0
         n += max(0, hi - lo + 1)
     return n
+
+
+def k1_library_call(torch, members: list, operands: tuple, want):
+    """One PyTorch call computing the same function as a K1 cluster of the Myia LM
+    step, as ``(callable, label)``, or None where there is none.  A yardstick
+    only: the port never calls it."""
+    if members == ["mul", "sub", "mul"]:  # tanh's backward, dout * (1 - out * out)
+        out, dout = operands
+        return (lambda: torch.ops.aten.tanh_backward(dout, out)), "aten.tanh_backward"
+    if members == ["unreduce", "eq", "cast"]:  # reduce_max's argmax mask, as f32
+        row_max, x = operands
+        buf = torch.empty_like(want)
+        return (lambda: torch.eq(x, row_max, out=buf)), "torch.eq with an f32 out="
+    return None  # ["sub", "mul", "reduce_sum"]: sum(onehot * (logits - lse))
+
+
+def myia_phases(torch, dev, records, card: str) -> tuple[dict, dict]:
+    """Phases 17-20: K1 against its oracles, and the Myia-compiled LM step from
+    tiny dims to full width.  Adds one K1 record per cluster of the main path to
+    ``records`` and returns the launch counts of the main path's timed steps, by
+    counter and by generated kernel."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLM, to_device
+    from repro_torch.kernels import (
+        FUSED_LAUNCHES, LAUNCHES, codegen, k1_cases, reset_launches, set_kernel_mode,
+    )
+    from repro_torch.launch import train as train_cli
+    from repro_torch.launch.myia_step import MyiaLMDims, make_myia_train_step
+
+    def in_ref_mode(fn, *args):
+        set_kernel_mode("ref")
+        try:
+            return fn(*args)
+        finally:
+            set_kernel_mode(None)
+
+    # -- 17. K1 against its oracles at the card-test shapes --------------------------
+    t0 = time.monotonic()
+    ulps = {}
+    for i, (cname, prog) in enumerate(sorted(k1_cases.ELEMENTWISE_CASES.items())):
+        for dt in (torch.float32, torch.bfloat16):
+            x, y = k1_cases.case_inputs(cname, (3, 37, 129), (3, 1, 0)[i % 3], dt, dev)
+            fn = k1_cases.compile_case(prog, x, y)
+            n_fused = len(fn.__fused_kernels__)
+            assert n_fused >= 1, cname
+            before = LAUNCHES["fused_map"]
+            got = fn(x, y)
+            torch.cuda.synchronize()
+            assert LAUNCHES["fused_map"] == before + n_fused, cname
+            want = in_ref_mode(fn, x, y)
+            assert got.dtype == want.dtype and got.shape == want.shape, cname
+            if got.dtype.is_floating_point:
+                u = k1_cases.ulps(got, want)
+                assert u <= k1_cases.MAP_ULPS.get(cname, 1), (cname, dt, u)
+            else:
+                assert torch.equal(got, want), (cname, dt)
+                u = 0
+            ulps[(cname, str(dt).removeprefix("torch."))] = u
+    exact = sorted(k for k, u in ulps.items() if u == 0)
+    say(f"[k1] {len(ulps)} map cases (every fusion.ELEMENTWISE primitive, f32 and bf16, "
+        f"body (3, 37, 129), the second operand at rank 3, 1 or 0): bitwise equal to the "
+        f"oracle in {len(exact)}; the rest within {{case: ulps}} "
+        f"{ {f'{c}/{d}': u for (c, d), u in ulps.items() if u} }")
+    red = []
+    for cname, prog in sorted(k1_cases.REDUCE_CASES.items()):
+        for dt in (torch.float32, torch.bfloat16):
+            x, y = k1_cases.case_inputs(cname, (16, 37, 129), 1, dt, dev)
+            fn = k1_cases.compile_case(prog, x, y)
+            before = LAUNCHES["fused_reduce"]
+            got = fn(x, y)
+            torch.cuda.synchronize()
+            assert LAUNCHES["fused_reduce"] == before + sum(
+                k.launches_per_call for k in fn.__fused_kernels__), cname
+            want = in_ref_mode(fn, x, y)
+            tol = k1_cases.REDUCE_TOL[str(dt).removeprefix("torch.")]
+            torch.testing.assert_close(got.float(), want.float(), **tol)
+            red.append((got.float() - want.float()).abs().max().item())
+    say(f"[k1] {len(red)} reduce cases (reduce_sum / reduce_max / unbroadcast over leading, "
+        f"trailing, middle, two and all axes, f32 and bf16, body (16, 37, 129)): max_abs_err "
+        f"{max(red):.3e} within {k1_cases.REDUCE_TOL}; {time.monotonic() - t0:.1f}s with the "
+        f"Triton builds")
+
+    # -- 18. the Myia LM step at tiny dims, f32: card with kernels vs CPU with oracles --
+    tiny = MyiaLMDims(96, 16, 40)
+    step_c, init_c = make_myia_train_step(tiny, 2, 8, 0.1, device="cpu")
+    step_g, _ = make_myia_train_step(tiny, 2, 8, 0.1, device=dev)
+    params_c = init_c()["params"]
+    rs = np.random.RandomState(0)
+    tok = torch.from_numpy(rs.randint(0, 96, (2, 8)).astype(np.int32))
+    lab = torch.from_numpy(rs.randint(0, 96, (2, 8)).astype(np.int32))
+    loss_c, grads_c = step_c.vag(*params_c, tok, lab)
+    reset_launches()
+    loss_g, grads_g = step_g.vag(*(p.to(dev) for p in params_c), tok.to(dev), lab.to(dev))
+    torch.cuda.synchronize()
+    assert (LAUNCHES["fused_map"], LAUNCHES["fused_reduce"]) == (3, 2), dict(LAUNCHES)
+    rel = abs(float(loss_g) - float(loss_c)) / abs(float(loss_c))
+    grel = max((g.cpu() - c).abs().max().item() / c.abs().max().item()
+               for g, c in zip(grads_g, grads_c))
+    say(f"[myia-tiny] V 96 D 16 H 40, batch 2 x 8, f32: loss {float(loss_g):.6f} card vs "
+        f"{float(loss_c):.6f} CPU (rel {rel:.2e}, bound {MYIA_CPU_LOSS_REL}); gradients "
+        f"within {grel:.2e} of their largest element (bound {MYIA_CPU_GRAD_REL}); 3 map and 2 "
+        f"reduce K1 launches (the reduce's two passes)")
+    assert rel <= MYIA_CPU_LOSS_REL and grel <= MYIA_CPU_GRAD_REL, (rel, grel)
+
+    # -- 19. --compiler myia at full width ---------------------------------------------
+    cfg = get_config("internlm2-1.8b")
+    dims = MyiaLMDims.from_config(cfg)
+    assert (dims.vocab, dims.d_model, dims.d_hidden) == (92544, 2048, 8192)
+    ds = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=MYIA_S, global_batch=MYIA_B))
+    step_fn, init_fn = make_myia_train_step(dims, MYIA_B, MYIA_S, MYIA_LR, device=dev)
+    state = init_fn()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    batch = to_device(ds.batch(0), dev)
+    args = (*state["params"], batch["tokens"], batch["labels"])
+    t0 = time.monotonic()
+    runner = step_fn.vag.specialize(args)
+    t_pipeline = time.monotonic() - t0
+    plan = runner.fn.__fusion_plan__
+    kinds = [c.kind for c in plan.clusters]
+    fused = runner.fn.__fused_kernels__
+    members = {k.name: [n.fn.value.name for n in c.order] for c, k in zip(plan.clusters, fused)}
+    say(f"[train-myia] plan {plan.stats()}: clusters "
+        f"{[(c.kind, c.body_shape, [n.fn.value.name for n in c.order]) for c in plan.clusters]}")
+    assert sorted(kinds) == ["map", "map", "map", "reduce"], kinds
+    # the first step, with the cluster inputs captured for the full-shape checks
+    captured = {}
+    call = codegen.FusedKernel.__call__
+
+    def capture(self, *a):
+        captured[self.name] = (self, a)
+        return call(self, *a)
+
+    codegen.FusedKernel.__call__ = capture
+    try:
+        t0 = time.monotonic()
+        state, m = step_fn(state, batch)
+        losses = [float(m["loss"])]
+        t_first = time.monotonic() - t0
+    finally:
+        codegen.FusedKernel.__call__ = call
+    say(f"[train-myia] first call: pipeline (parse, AD, infer, optimize, fuse, lower) "
+        f"{t_pipeline:.2f}s; first step with the Triton builds {t_first:.2f}s")
+    step_s, per_step = [], []
+    reset_launches()
+    for i in range(1, MYIA_STEPS + 1):
+        batch = to_device(ds.batch(i), dev)
+        before = dict(LAUNCHES)
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        state, m = step_fn(state, batch)
+        losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        step_s.append(time.monotonic() - t0)
+        per_step.append({n: LAUNCHES[n] - before[n] for n in LAUNCHES})
+    counts = dict(LAUNCHES)
+    fused_counts = dict(FUSED_LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    med = statistics.median(step_s)
+    tokens = MYIA_B * MYIA_S
+    say(f"[train-myia] {card}: V {dims.vocab} D {dims.d_model} H {dims.d_hidden}, f32, SGD lr "
+        f"{MYIA_LR}, batch {MYIA_B} x {MYIA_S}: median step {med:.4f}s over {MYIA_STEPS} "
+        f"(min {min(step_s):.4f}, max {max(step_s):.4f}), {tokens / med:.0f} tokens/s, peak "
+        f"memory {peak:.2f} GiB; loss {losses[0]:.4f} -> {losses[-1]:.4f}")
+    say(f"[train-myia] launches per step {per_step[0]}; by kernel over the run {fused_counts}; "
+        f"launches per call {({k.name: k.launches_per_call for k in fused})}")
+    want = {kind: sum(k.launches_per_call for k in fused if k.kind == kind)
+            for kind in ("map", "reduce")}
+    # 3 map clusters, and the cross-entropy sum's two passes over 189.5M elements
+    assert want == {"map": 3, "reduce": 2}, want
+    assert all((c["fused_map"], c["fused_reduce"]) == (want["map"], want["reduce"])
+               and sum(c.values()) == 5 for c in per_step), per_step
+    assert fused_counts == {k.name: MYIA_STEPS * k.launches_per_call for k in fused}, \
+        fused_counts
+    assert all(math.isfinite(x) for x in losses), losses
+    assert statistics.mean(losses[-5:]) < losses[0], losses
+    # the user's entry point: two steps of the driver, with its checkpoint
+    with tempfile.TemporaryDirectory() as ck:
+        assert train_cli.main(["--compiler", "myia", "--steps", "2", "--ckpt-every", "100",
+                               "--ckpt-dir", ck]) == 0
+
+    # -- 17 (cont.). the main path's four clusters at their full shapes -----------------
+    for kname, (k, a) in sorted(captured.items()):
+        got = k.triton(*a)
+        want = k.oracle(*a)
+        torch.cuda.synchronize()
+        if k.kind == "map":
+            err_ulps = k1_cases.ulps(got, want)
+            assert err_ulps <= 1, (kname, err_ulps)
+        else:
+            torch.testing.assert_close(got, want, **k1_cases.REDUCE_TOL["float32"])
+            err_ulps = None
+        err = (got - want).abs().max().item()
+        n = int(np.prod(k.body_shape))
+        bound_ms = max(k.bytes_moved / HBM_BYTES_PER_S, k.n_nodes * n / F32_FLOPS) * 1e3
+        lib_ms, lib_note = None, "no single PyTorch call"
+        lib = k1_library_call(torch, members[kname], a, want)
+        if lib is not None:
+            call_lib, lib_note = lib
+            lib_out = call_lib()
+            torch.testing.assert_close(lib_out, want, **k1_cases.REDUCE_TOL["float32"])
+            lib_ms = time_ms(torch, call_lib)
+            lib_note += f", max_abs_err {(lib_out - want).abs().max().item():.3e} vs the oracle"
+        rec = dict(
+            name=kname, route="triton", source="src/repro_torch/kernels/codegen.py",
+            replaces="src/repro/kernels/codegen.py:205", launches=fused_counts[kname],
+            max_abs_err=err,
+            ms=time_ms(torch, lambda: k.triton(*a)), plain_ms=time_ms(torch, lambda: k.oracle(*a)),
+            bound_ms=bound_ms,
+            bound_by="bytes" if k.bytes_moved / HBM_BYTES_PER_S >= k.n_nodes * n / F32_FLOPS
+            else "operations",
+            library_ms=lib_ms,
+        )
+        records[kname] = rec
+        say(f"[k1] {kname} {k.kind} {members[kname]} body {k.body_shape} -> {k.out_shape}, "
+            f"{k.launches_per_call} launch(es) a call: max_abs_err {err:.3e}"
+            f"{f' ({err_ulps} ulp)' if err_ulps is not None else ''} kernel_ms {rec['ms']:.4f} "
+            f"oracle_ms {rec['plain_ms']:.4f} library_ms "
+            f"{'null' if lib_ms is None else f'{lib_ms:.4f}'} "
+            f"({lib_note}) bound_ms {bound_ms:.4f} (bytes, "
+            f"{k.bytes_moved / 1e6:.1f} MB) = {bound_ms / rec['ms'] * 100:.1f}% of the bound")
+    del captured
+
+    # -- 20. one full-width step, kernels against kernel mode "ref" -------------------
+    batch = to_device(ds.batch(MYIA_STEPS + 1), dev)
+    args = (*state["params"], batch["tokens"], batch["labels"])
+    loss_k, grads_k = step_fn.vag(*args)
+    loss_r, grads_r = in_ref_mode(step_fn.vag, *args)
+    rel = abs(float(loss_k) - float(loss_r)) / abs(float(loss_r))
+    grels = [((g - r).abs().max() / r.abs().max()).item() for g, r in zip(grads_k, grads_r)]
+    say(f"[train-myia] one full-width step, kernels vs kernel mode 'ref': loss rel {rel:.2e} "
+        f"(bound {MYIA_REF_LOSS_REL}); gradients (emb, w1, w2, wout) within "
+        f"{[f'{g:.2e}' for g in grels]} of their largest element (bound {MYIA_REF_GRAD_REL})")
+    assert rel <= MYIA_REF_LOSS_REL and max(grels) <= MYIA_REF_GRAD_REL, (rel, grels)
+    del state, grads_k, grads_r, args
+    torch.cuda.empty_cache()
+    return counts, fused_counts
 
 
 def main() -> int:
@@ -590,10 +859,11 @@ def main() -> int:
         f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     say(f"[serve] launches: prefill {prefill_counts}; decode {decode_counts} over {GEN} steps")
     n_layers = cfg.n_layers
+    no_k1 = {"fused_map": 0, "fused_reduce": 0}
     assert prefill_counts == {"flash_attention_fwd": n_layers, "rmsnorm_fwd": 2 * n_layers + 1,
-                              "rmsnorm_bwd": 0, "ssd_scan_fwd": 0}, prefill_counts
+                              "rmsnorm_bwd": 0, "ssd_scan_fwd": 0, **no_k1}, prefill_counts
     assert decode_counts == {"flash_attention_fwd": 0, "rmsnorm_fwd": (2 * n_layers + 1) * GEN,
-                             "rmsnorm_bwd": 0, "ssd_scan_fwd": 0}, decode_counts
+                             "rmsnorm_bwd": 0, "ssd_scan_fwd": 0, **no_k1}, decode_counts
     assert logits.shape == (B, cfg.vocab) and tokens.shape == (B, GEN)
     assert tokens.dtype == torch.int32
     assert bool(torch.isfinite(logits).all()), "non-finite prefill logits"
@@ -675,7 +945,7 @@ def main() -> int:
         f"{time.monotonic() - t0:.3f}s, loss {losses[0]:.4f}")
     L, R = tcfg.n_layers, sum(remat_layers(tcfg))
     per_step = {"flash_attention_fwd": L + R, "rmsnorm_fwd": 2 * L + 1 + 2 * R,
-                "rmsnorm_bwd": 2 * L + 1, "ssd_scan_fwd": 0}
+                "rmsnorm_bwd": 2 * L + 1, "ssd_scan_fwd": 0, "fused_map": 0, "fused_reduce": 0}
     torch.cuda.reset_peak_memory_stats()
     step_s, gnorms = [], []
     reset_launches()
@@ -908,7 +1178,7 @@ def main() -> int:
         f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     say(f"[serve-mamba2] launches: prefill {mprefill_counts}; decode {mdecode_counts} over "
         f"{MGEN} steps")
-    none = {"flash_attention_fwd": 0, "rmsnorm_bwd": 0}
+    none = {"flash_attention_fwd": 0, "rmsnorm_bwd": 0, "fused_map": 0, "fused_reduce": 0}
     assert mprefill_counts == {**none, "ssd_scan_fwd": nl, "rmsnorm_fwd": 2 * nl + 1}, \
         mprefill_counts
     assert all(c == {**none, "ssd_scan_fwd": 0, "rmsnorm_fwd": 2 * nl + 1}
@@ -968,19 +1238,28 @@ def main() -> int:
     say(f"[ssd] Function gradients (K5 + chunked backward) agree with plain autograd through "
         f"the stepwise recurrence within {SSD_TOL}")
 
+    # -- 17-20. K1 and the Myia-compiled train step -------------------------------
+    myia_counts, myia_fused = myia_phases(torch, dev, records, f"{name} ({smi})")
+
     # -- records ---------------------------------------------------------------
     # times at the training shapes (K2, K3, K4) and the mamba2 serving shape (K5);
     # launches over the main path of each kernel's own slice (the 20 timed training
     # steps for K2, K3, K4; the mamba2 serve run for K5), and per path (the gemma3
     # serve run of phase 5, the training run of phase 9, the mamba2 serve run of 14)
     records["ssd_scan_fwd"]["launches"] = mamba_counts["ssd_scan_fwd"]
+
+    def launches_on(counts, fused, rec):
+        """A kernel's launches on one path: K2-K5 by their counters, K1's generated
+        kernels by name (none of them runs off the Myia path)."""
+        return counts[rec["name"]] if rec["name"] in counts else fused.get(rec["name"], 0)
     kernels_line = [
         {**{key: rec[key] for key in ("name", "route", "source", "replaces", "launches",
                                       "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                                       "library_ms")},
-         "launches_by_path": {"serve": serve_counts[rec["name"]],
-                              "train": train_counts[rec["name"]],
-                              "serve_mamba2": mamba_counts[rec["name"]]}}
+         "launches_by_path": {"serve": launches_on(serve_counts, {}, rec),
+                              "train": launches_on(train_counts, {}, rec),
+                              "serve_mamba2": launches_on(mamba_counts, {}, rec),
+                              "train_myia": launches_on(myia_counts, myia_fused, rec)}}
         for rec in records.values()
     ]
     print(json.dumps({"kernels": kernels_line}))

@@ -31,10 +31,15 @@ COMPILE_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 #: dtype codes of the C interface (csrc/common.cuh)
 DTYPE_CODES = {"float32": 0, "bfloat16": 1}
 
-#: Kernel launches since the last :func:`reset_launches`, by kernel name.
+#: Kernel launches since the last :func:`reset_launches`, by kernel name.  K1's
+#: generated kernels (``codegen.py``) count under ``fused_map`` / ``fused_reduce``,
+#: and each by its generated name in :data:`FUSED_LAUNCHES`.
 LAUNCHES: dict[str, int] = {
-    "rmsnorm_fwd": 0, "rmsnorm_bwd": 0, "flash_attention_fwd": 0, "ssd_scan_fwd": 0
+    "rmsnorm_fwd": 0, "rmsnorm_bwd": 0, "flash_attention_fwd": 0, "ssd_scan_fwd": 0,
+    "fused_map": 0, "fused_reduce": 0,
 }
+#: K1 launches since the last :func:`reset_launches`, by generated kernel name.
+FUSED_LAUNCHES: dict[str, int] = {}
 
 _LIB: ctypes.CDLL | None = None
 #: Seconds the last build took in this process (None: loaded a cached library).
@@ -44,6 +49,7 @@ build_seconds: float | None = None
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+    FUSED_LAUNCHES.clear()
 
 
 def sources() -> list[Path]:

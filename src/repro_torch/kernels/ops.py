@@ -27,22 +27,52 @@ Gradients: one ``torch.autograd.Function`` per op, the port of the reference's
 
 Without a gradient to take (``no_grad``, inference mode, or no operand that
 requires one) the ops run the forward alone: the attention kernel writes no
-logsumexp and nothing is saved.  The reference's global kernel mode and the Myia
-primitive registration wait for the Myia slice.
+logsumexp and nothing is saved.
+
+The global kernel mode (:func:`set_kernel_mode`, the reference's
+``MYIA_KERNEL_MODE``) takes the values of :data:`IMPLS`: ``None`` (the default:
+the kernels on CUDA tensors), ``"ref"`` or ``"chunked"``.  The Myia primitives
+registered at the end of this module (``flash_attention``, ``rmsnorm``,
+``ssd_scan`` and their ``*_vjp``) run the ops in that mode, so ``grad`` through
+the Myia compiler reaches K2–K5, and the fused clusters of
+:mod:`.codegen` run their torch oracles in modes ``"ref"`` and ``"chunked"``.
+The reference's ``"pallas_interpret"`` has no counterpart: it raises.
 """
 
 from __future__ import annotations
 
 import torch
 
+from repro_torch.core.primitives import register_primitive, zeros_like
 from . import ref
 from .flash_attention import flash_attention_fwd
 from .rmsnorm import rmsnorm_bwd, rmsnorm_fwd
 from .ssd_scan import ssd_scan_fwd
 
-__all__ = ["flash_attention", "rmsnorm", "ssd_scan", "ssd_step", "IMPLS", "SSD_CHUNK"]
+__all__ = [
+    "flash_attention", "rmsnorm", "ssd_scan", "ssd_step", "IMPLS", "SSD_CHUNK",
+    "get_kernel_mode", "set_kernel_mode",
+]
 
 IMPLS = (None, "ref", "chunked")
+
+_MODE: str | None = None
+
+
+def set_kernel_mode(mode: str | None) -> None:
+    """The implementation the Myia primitives and fused clusters run: one of
+    :data:`IMPLS` (``None``: the kernels on CUDA tensors)."""
+    global _MODE
+    if mode not in IMPLS:
+        raise ValueError(
+            f"kernel mode must be one of {IMPLS}, got {mode!r} (the reference's Pallas "
+            "modes have no counterpart in the port)"
+        )
+    _MODE = mode
+
+
+def get_kernel_mode() -> str | None:
+    return _MODE
 
 #: Chunk length of the plain chunked SSD (``impl="chunked"`` and the backward), the
 #: reference's default (``REPRO_SSD_CHUNK``, ops.py).
@@ -52,7 +82,7 @@ SSD_CHUNK = 128
 def _use_kernel(x: torch.Tensor, impl: str | None) -> bool:
     if impl not in IMPLS:
         raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
-    return impl is None and x.device.type != "cpu"
+    return impl is None and x.device.type == "cuda"  # meta tensors (inference): plain
 
 
 def _needs_grad(*ts: torch.Tensor) -> bool:
@@ -210,3 +240,91 @@ def ssd_step(h, x_t, dt_t, A, B_t, C_t):
     """One decode step, the state carried explicitly: plain PyTorch on any device,
     as in the reference (the update is a small elementwise, bandwidth-bound pass)."""
     return ref.ssd_step_ref(h, x_t, dt_t, A, B_t, C_t)
+
+
+# ===========================================================================
+# Myia primitive registration (paper §3: kernels as primitives with known
+# backpropagators; bprops are Myia-subset functions, so reverse-over-reverse
+# stays possible through *other* ops while kernel vjps terminate the chain).
+# The primitives run the ops in the global kernel mode; a vjp primitive takes
+# the op's own gradient (its autograd Function: K3, the chunked attention and
+# SSD backward passes) from the saved inputs.
+# ===========================================================================
+
+
+def _vjp(fn, inputs: tuple, dout) -> tuple:
+    ins = [t.detach().requires_grad_(True) for t in inputs]
+    with torch.enable_grad():
+        out = fn(*ins)
+    grads = torch.autograd.grad(out, ins, dout, allow_unused=True)
+    return tuple(torch.zeros_like(t) if g is None else g for g, t in zip(grads, inputs))
+
+
+def _prim_flash_impl(q, k, v, causal, window, sm_scale):
+    return flash_attention(
+        q, k, v, causal=causal, window=window, sm_scale=sm_scale, impl=get_kernel_mode()
+    )
+
+
+def _prim_flash_vjp_impl(q, k, v, causal, window, sm_scale, dout):
+    return _vjp(lambda *a: _prim_flash_impl(*a, causal, window, sm_scale), (q, k, v), dout)
+
+
+flash_attention_vjp = register_primitive(
+    "flash_attention_vjp", _prim_flash_vjp_impl, bprop="zeros"
+)
+
+
+def _bprop_flash_attention(q, k, v, causal, window, sm_scale, out, dout):
+    g = flash_attention_vjp(q, k, v, causal, window, sm_scale, dout)
+    return (
+        g[0],
+        g[1],
+        g[2],
+        zeros_like(causal),
+        zeros_like(window),
+        zeros_like(sm_scale),
+    )
+
+
+flash_attention_prim = register_primitive(
+    "flash_attention", _prim_flash_impl, bprop=_bprop_flash_attention
+)
+
+
+def _prim_rmsnorm_impl(x, w, eps):
+    return rmsnorm(x, w, eps=eps, impl=get_kernel_mode())
+
+
+def _prim_rmsnorm_vjp_impl(x, w, eps, dy):
+    return _vjp(lambda a, b: _prim_rmsnorm_impl(a, b, eps), (x, w), dy)
+
+
+rmsnorm_vjp = register_primitive("rmsnorm_vjp", _prim_rmsnorm_vjp_impl, bprop="zeros")
+
+
+def _bprop_rmsnorm(x, w, eps, out, dout):
+    g = rmsnorm_vjp(x, w, eps, dout)
+    return (g[0], g[1], zeros_like(eps))
+
+
+rmsnorm_prim = register_primitive("rmsnorm", _prim_rmsnorm_impl, bprop=_bprop_rmsnorm)
+
+
+def _prim_ssd_impl(x, dt, A, B, C):
+    return ssd_scan(x, dt, A, B, C, impl=get_kernel_mode())
+
+
+def _prim_ssd_vjp_impl(x, dt, A, B, C, dy):
+    return _vjp(_prim_ssd_impl, (x, dt, A, B, C), dy)
+
+
+ssd_scan_vjp = register_primitive("ssd_scan_vjp", _prim_ssd_vjp_impl, bprop="zeros")
+
+
+def _bprop_ssd_scan(x, dt, A, B, C, out, dout):
+    g = ssd_scan_vjp(x, dt, A, B, C, dout)
+    return (g[0], g[1], g[2], g[3], g[4])
+
+
+ssd_scan_prim = register_primitive("ssd_scan", _prim_ssd_impl, bprop=_bprop_ssd_scan)

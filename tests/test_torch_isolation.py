@@ -35,6 +35,9 @@ def test_port_files_exist():
     assert "src/repro_torch/launch/serve.py" in names
     assert "src/repro_torch/launch/train.py" in names
     assert "src/repro_torch/optim/__init__.py" in names
+    assert "src/repro_torch/core/api.py" in names
+    assert "src/repro_torch/kernels/codegen.py" in names
+    assert "src/repro_torch/launch/myia_step.py" in names
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: p.relative_to(ROOT).as_posix())
@@ -46,6 +49,50 @@ def test_no_jax_or_reference_imports(path):
 def test_forbidden_names():
     assert _forbidden("jax.numpy") and _forbidden("repro.models") and _forbidden("repro")
     assert not _forbidden("repro_torch.models") and not _forbidden("torch")
+
+
+def _top_level_imports(path: pathlib.Path) -> list[str]:
+    names = []
+    for node in ast.parse(path.read_text(), filename=str(path)).body:
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            names.append(node.module)
+    return names
+
+
+@pytest.mark.parametrize(
+    "path", [p for p in PORT_FILES if "repro_torch" in p.parts],
+    ids=lambda p: p.relative_to(ROOT).as_posix(),
+)
+def test_no_module_level_triton_import(path):
+    """Triton is imported only inside the function that builds a kernel: the
+    port must import where there is no triton."""
+    bad = [m for m in _top_level_imports(path) if m.split(".")[0] == "triton"]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad} at module level"
+
+
+def test_importing_the_myia_core_loads_no_jax_or_triton():
+    code = (
+        "import sys\n"
+        "import repro_torch.core, repro_torch.kernels.codegen, repro_torch.kernels.k1_cases\n"
+        "import repro_torch.launch.myia_step, repro_torch.launch.profile_myia\n"
+        "import repro_torch.obs\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro', 'triton'))\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code],
+        cwd=ROOT,
+        env={"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"},
+        capture_output=True,
+        text=True,
+        timeout=240,
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
 
 
 def test_importing_the_port_loads_no_jax():

@@ -128,7 +128,8 @@ def test_cpu_dispatch_runs_plain_versions_and_launches_nothing():
     y = kernels.rmsnorm(q, torch.ones(32))
     s = kernels.ssd_scan(*ssd_in)
     assert kernels.LAUNCHES == {
-        "rmsnorm_fwd": 0, "rmsnorm_bwd": 0, "flash_attention_fwd": 0, "ssd_scan_fwd": 0
+        "rmsnorm_fwd": 0, "rmsnorm_bwd": 0, "flash_attention_fwd": 0, "ssd_scan_fwd": 0,
+        "fused_map": 0, "fused_reduce": 0,
     }
     torch.testing.assert_close(s, tref.ssd_scan_ref(*ssd_in)[0], rtol=0, atol=0)
     torch.testing.assert_close(o, tref.flash_attention_ref(q, k, v, causal=True), rtol=0, atol=0)

@@ -18,6 +18,12 @@ does.  The SSD scan takes 2e-4 in f32, as ``tests/kernels/test_ssd_scan.py`` hol
 the chunked kernel against the stepwise recurrence (the chunk's decays are
 differences of a cumsum, not products of per-step factors); its bf16 y takes 2e-2
 and its f32 state 2e-4 (both compute in f32 from the same bf16 inputs).
+
+K1, the Triton kernels generated per fusion cluster (``kernels/codegen.py``), is held
+against its torch oracles on the programs of ``repro_torch.kernels.k1_cases``: every
+elementwise primitive of the fusion tier at ragged body shapes with the second
+operand at rank 3, 1 and 0, in f32 and bf16, within an ulp (``power`` two), and
+every reduction root over leading, trailing, middle, two and all axes, allclose.
 """
 
 import numpy as np
@@ -25,7 +31,7 @@ import pytest
 import torch
 
 from repro_torch import kernels
-from repro_torch.kernels import ops
+from repro_torch.kernels import k1_cases, ops
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels.flash_attention import flash_attention_fwd
 from repro_torch.kernels.rmsnorm import rmsnorm_bwd, rmsnorm_fwd
@@ -321,3 +327,85 @@ def test_ssd_scan_function_gradients(cuda, case):
         for a, b in zip(grads[impl], grads["ref"]):
             assert bool(torch.isfinite(a).all())
             np.testing.assert_allclose(f32(a), f32(b), **SSD_TOL)
+
+
+# ---------------------------------------------------------------------------
+# K1: the Triton kernels generated per fusion cluster, against their oracles
+# ---------------------------------------------------------------------------
+
+def _k1_oracle(fn, *args):
+    kernels.set_kernel_mode("ref")
+    try:
+        return fn(*args)
+    finally:
+        kernels.set_kernel_mode(None)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", sorted(k1_cases.ELEMENTWISE_CASES))
+def test_k1_map_kernel_matches_its_oracle(cuda, name, dtype):
+    """Each elementwise primitive in a generated map cluster, at ragged body shapes,
+    with the second operand at the body shape, broadcast from rank 1 and rank 0."""
+    prog = k1_cases.ELEMENTWISE_CASES[name]
+    for shape in k1_cases.ELEMENTWISE_SHAPES:
+        for y_rank in (len(shape), 1, 0):
+            x, y = k1_cases.case_inputs(name, shape, y_rank, DTYPES[dtype], cuda)
+            fn = k1_cases.compile_case(prog, x, y)
+            n = len(fn.__fused_kernels__)
+            assert n >= 1 and all(k.kind == "map" for k in fn.__fused_kernels__)
+            before = kernels.LAUNCHES["fused_map"]
+            got = fn(x, y)
+            torch.cuda.synchronize()
+            assert kernels.LAUNCHES["fused_map"] == before + n
+            want = _k1_oracle(fn, x, y)
+            assert got.dtype == want.dtype and got.shape == want.shape
+            if got.dtype.is_floating_point:
+                ulps = k1_cases.ulps(got, want)
+                assert ulps <= k1_cases.MAP_ULPS.get(name, 1), (name, shape, y_rank, ulps)
+            else:
+                assert torch.equal(got, want), (name, shape, y_rank)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", sorted(k1_cases.REDUCE_CASES))
+def test_k1_reduce_kernel_matches_its_oracle(cuda, name, dtype):
+    """Each reduction root over leading, trailing, middle, two and all axes, with a
+    broadcast operand of rank 3, 1 and 0; the larger shape splits its reductions."""
+    prog = k1_cases.REDUCE_CASES[name]
+    for shape in k1_cases.REDUCE_SHAPES:
+        for y_rank in (3, 1, 0):
+            x, y = k1_cases.case_inputs(name, shape, y_rank, DTYPES[dtype], cuda)
+            fn = k1_cases.compile_case(prog, x, y)
+            kinds = sorted(k.kind for k in fn.__fused_kernels__)
+            assert kinds == ["reduce"], (name, kinds)
+            before = kernels.LAUNCHES["fused_reduce"]
+            got = fn(x, y)
+            torch.cuda.synchronize()
+            assert kernels.LAUNCHES["fused_reduce"] == before + sum(
+                k.launches_per_call for k in fn.__fused_kernels__)
+            want = _k1_oracle(fn, x, y)
+            assert got.dtype == want.dtype and got.shape == want.shape
+            np.testing.assert_allclose(f32(got), f32(want), **k1_cases.REDUCE_TOL[dtype])
+
+
+def test_k1_lm_step_clusters_on_the_card(cuda):
+    """The Myia LM step at tiny dims: exactly its 4 clusters (3 map, 1 reduce) run as
+    Triton kernels, in 5 launches (the reduce combines its partials in a second
+    pass), and the loss and gradients agree with the oracles' run."""
+    from repro_torch.launch.myia_step import MyiaLMDims, make_myia_train_step
+
+    dims = MyiaLMDims(96, 16, 40)
+    step_fn, init_fn = make_myia_train_step(dims, 2, 8, 0.1, device=cuda)
+    params = init_fn()["params"]
+    rs = np.random.RandomState(0)
+    tok = torch.from_numpy(rs.randint(0, 96, (2, 8)).astype(np.int32)).to(cuda)
+    lab = torch.from_numpy(rs.randint(0, 96, (2, 8)).astype(np.int32)).to(cuda)
+    kernels.reset_launches()
+    loss, grads = step_fn.vag(*params, tok, lab)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["fused_map"] == 3 and kernels.LAUNCHES["fused_reduce"] == 2
+    assert len(kernels.FUSED_LAUNCHES) == 4
+    loss_o, grads_o = _k1_oracle(step_fn.vag, *params, tok, lab)
+    np.testing.assert_allclose(f32(loss), f32(loss_o), rtol=1e-5, atol=1e-6)
+    for a, b in zip(grads, grads_o):
+        np.testing.assert_allclose(f32(a), f32(b), rtol=1e-5, atol=1e-7)

@@ -255,7 +255,7 @@ def test_train_step_hands_kernels_what_they_take(checked_kernels, name, dtype):
     state, metrics = make_train_step(tc, opt)(state, to_device(ds.batch(0), CPU))
     assert LAUNCHES == {"flash_attention_fwd": 0, "ssd_scan_fwd": 0,
                         mixer_kernel: L + R, "rmsnorm_fwd": 2 * L + 1 + 2 * R,
-                        "rmsnorm_bwd": 2 * L + 1}
+                        "rmsnorm_bwd": 2 * L + 1, "fused_map": 0, "fused_reduce": 0}
     assert bool(torch.isfinite(metrics["loss"])) and int(state["step"]) == 1
     assert all(a.dtype == b.dtype for a, b in zip(
         T.leaves(state["params"]), T.leaves(make_train_state_fn(tc, opt, device="cpu")()[
@@ -263,7 +263,7 @@ def test_train_step_hands_kernels_what_they_take(checked_kernels, name, dtype):
     reset_launches()
     make_train_step(tc, opt, impl="ref")(state, to_device(ds.batch(1), CPU))
     assert LAUNCHES == {"flash_attention_fwd": 0, "ssd_scan_fwd": 0, "rmsnorm_fwd": 0,
-                        "rmsnorm_bwd": 0}
+                        "rmsnorm_bwd": 0, "fused_map": 0, "fused_reduce": 0}
 
 
 def test_logits_product_gradient_keeps_the_f32_cotangent():
