@@ -27,6 +27,9 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 COMPILE_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+#: libcuda, for cuTensorMapEncodeTiled (K4's TMA descriptors); nvcc links against
+#: the toolkit's stub, and the installed libcuda.so.1 is loaded at run time
+LINK_FLAGS = ["-lcuda"]
 
 #: dtype codes of the C interface (csrc/common.cuh)
 DTYPE_CODES = {"float32": 0, "bfloat16": 1}
@@ -61,7 +64,7 @@ def source_hash() -> str:
     for path in sources():
         h.update(path.name.encode())
         h.update(path.read_bytes())
-    h.update(" ".join(ARCH_FLAGS + COMPILE_FLAGS).encode())
+    h.update(" ".join(ARCH_FLAGS + COMPILE_FLAGS + LINK_FLAGS).encode())
     return h.hexdigest()[:16]
 
 
@@ -113,7 +116,7 @@ def build() -> Path:
             raise RuntimeError(f"nvcc failed on {failed}:\n" + "\n".join(log))
         tmp_lib = Path(tmp) / out.name
         link = subprocess.run(
-            [nvcc, *ARCH_FLAGS, "-shared", *map(str, objs), "-o", str(tmp_lib)],
+            [nvcc, *ARCH_FLAGS, "-shared", *map(str, objs), "-o", str(tmp_lib), *LINK_FLAGS],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         )
         if link.returncode != 0:

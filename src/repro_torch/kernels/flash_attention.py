@@ -86,11 +86,11 @@ def flash_attention_fwd(
         )
     scale = float(sm_scale) if sm_scale is not None else 1.0 / (D**0.5)
     with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
         err = lib.flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             lse.data_ptr() if return_lse else None, B, H, KVH, Sq, Skv, D, code, int(bool(causal)),
-            -1 if window is None else int(window), scale, stream,
+            -1 if window is None else int(window), scale,
+            torch.cuda.current_stream(q.device).cuda_stream,
         )
     if err != 0:
         raise RuntimeError(f"flash_attention_fwd launch failed with CUDA error {err}")

@@ -152,6 +152,55 @@ def flash_attention_fwd_lse_chunked(
     return (acc / lsafe).to(q.dtype), m + torch.log(lsafe)
 
 
+_LOG2E = 1.4426950408889634
+_LN2 = 0.6931471805599453
+
+
+def flash_attention_fwd_tc_twin(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    causal: bool = False,
+    window: int | None = None,
+    sm_scale: float | None = None,
+    block_k: int = 64,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The rounding points of K4's bf16 tensor-core kernel (``csrc/flash_attention.cu``,
+    ``fa_fwd_tc_kernel``), in plain PyTorch, for the tests: (o in q.dtype, lse (B, H,
+    Sq, 1) f32 in natural-log, scaled-score units).
+
+    Per key block of ``block_k``: the scores are an f32 product of the inputs with the
+    scale applied after it, in log2 units (``s * scale * log2(e)``, the finite mask
+    value ``-1e30 * log2(e)``, ``-inf`` past ``Skv``); ``p = exp2(t - m)``; ``l`` sums
+    the f32 ``p``, and P·V takes ``p`` rounded to bf16 with an f32 sum.  No main path
+    runs it."""
+    B, H, Sq, D = q.shape
+    KVH, Skv = k.shape[1], k.shape[2]
+    group = H // KVH
+    scale = sm_scale if sm_scale is not None else 1.0 / (D**0.5)
+    c = scale * _LOG2E
+    qf = q.to(torch.float32)
+    acc = torch.zeros((B, H, Sq, D), dtype=torch.float32, device=q.device)
+    m = torch.full((B, H, Sq, 1), _NEG_INF * _LOG2E, dtype=torch.float32, device=q.device)
+    l = torch.zeros((B, H, Sq, 1), dtype=torch.float32, device=q.device)
+    for start in range(0, Skv, block_k):
+        blk = slice(start, min(start + block_k, Skv))
+        kr = k[:, :, blk].to(torch.float32).repeat_interleave(group, dim=1)
+        vr = v[:, :, blk].to(torch.float32).repeat_interleave(group, dim=1)
+        t = torch.einsum("bhqd,bhkd->bhqk", qf, kr) * c
+        mask = attention_mask(Sq, Skv, causal=causal, window=window, device=q.device)[:, blk]
+        t = t.masked_fill(~mask[None, None], _NEG_INF * _LOG2E)
+        m_new = torch.maximum(m, t.amax(dim=-1, keepdim=True))
+        alpha = torch.exp2(m - m_new)
+        p = torch.exp2(t - m_new)
+        l = alpha * l + p.sum(dim=-1, keepdim=True)
+        pv = torch.einsum("bhqk,bhkd->bhqd", p.to(torch.bfloat16).to(torch.float32), vr)
+        acc = acc * alpha + pv
+        m = m_new
+    lsafe = torch.where(l == 0.0, torch.ones_like(l), l)
+    return (acc / lsafe).to(q.dtype), m * _LN2 + torch.log(lsafe)
+
+
 def flash_attention_bwd_chunked(
     q: torch.Tensor,
     k: torch.Tensor,

@@ -13,6 +13,7 @@ import torch
 from . import build
 
 _DTYPES = {torch.float32: "float32", torch.bfloat16: "bfloat16"}
+_CODES = {t: build.DTYPE_CODES[name] for t, name in _DTYPES.items()}
 
 
 def check_args(x: torch.Tensor, w: torch.Tensor) -> None:
@@ -25,26 +26,44 @@ def check_args(x: torch.Tensor, w: torch.Tensor) -> None:
         raise ValueError(f"weight shape {tuple(w.shape)} does not match x {tuple(x.shape)}")
     if not (x.is_contiguous() and w.is_contiguous()):
         raise ValueError("rmsnorm_fwd needs contiguous x and w")
-    if w.device != x.device:
+    if w.get_device() != x.get_device():
         raise ValueError(f"x is on {x.device} but w on {w.device}")
 
 
+#: the kernels' library, held here once loaded (``build.load`` builds it at first use)
+_LIB = None
+
+
+def _lib():
+    global _LIB
+    if _LIB is None:
+        _LIB = build.load()
+    return _LIB
+
+
 def rmsnorm_fwd(x: torch.Tensor, w: torch.Tensor, *, eps: float = 1e-6) -> torch.Tensor:
-    """Launch the CUDA kernel.  x: (..., D); w: (D,).  Returns x's shape and dtype."""
+    """Launch the CUDA kernel.  x: (..., D); w: (D,).  Returns x's shape and dtype.
+
+    Decoding calls this once per norm per token while the card waits on the host, so
+    the launch is kept lean: the library is held in a module global, and the stream
+    is read as a raw handle without entering a device context (unless x lies on
+    another device than the current one)."""
     check_args(x, w)
     if not x.is_cuda:
         raise ValueError(f"rmsnorm_fwd launches a CUDA kernel; x lies on {x.device}")
+    device = x.get_device()
+    if device != torch.cuda.current_device():
+        with torch.cuda.device(device):
+            return rmsnorm_fwd(x, w, eps=eps)
     y = torch.empty_like(x)
-    rows = x.numel() // x.shape[-1] if x.shape[-1] else 0
+    D = x.shape[-1]
+    rows = x.numel() // D if D else 0
     if rows == 0:
         return y
-    lib = build.load()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.rmsnorm_fwd(
-            x.data_ptr(), w.data_ptr(), y.data_ptr(), rows, x.shape[-1],
-            build.DTYPE_CODES[_DTYPES[x.dtype]], float(eps), stream,
-        )
+    err = _lib().rmsnorm_fwd(
+        x.data_ptr(), w.data_ptr(), y.data_ptr(), rows, D, _CODES[x.dtype], eps,
+        torch._C._cuda_getCurrentRawStream(device),
+    )
     if err != 0:
         raise RuntimeError(f"rmsnorm_fwd launch failed with CUDA error {err}")
     build.LAUNCHES["rmsnorm_fwd"] += 1

@@ -93,6 +93,31 @@ def test_flash_attention_matches_pallas_interpret(case, dtype):
     np.testing.assert_allclose(f32(got), f32(want), **TOL[dtype])
 
 
+# K4's bf16 path runs on the tensor cores and rounds P to bf16 before P·V, where the
+# reference keeps P in f32.  Its plain twin (ref.flash_attention_fwd_tc_twin) shows on
+# the CPU that this rounding keeps the reference's bf16 tolerance, on every FA_CASES
+# entry and at gemma3-1b's geometry (head_dim 256, 4 query heads on 1 kv head, a
+# window), and that lse, whose l sums the unrounded P, keeps the f32 one.
+TC_TWIN_CASES = {**FA_CASES, "gemma3_geometry": (1, 4, 1, 128, 128, 256, True, 32, 64, 64)}
+
+
+@pytest.mark.parametrize("case", sorted(TC_TWIN_CASES))
+def test_tensor_core_twin_keeps_the_reference_tolerance(case):
+    B, H, KVH, Sq, Skv, D, causal, window, bq, bk = TC_TWIN_CASES[case]
+    q, k, v = make_qkv(20 + sorted(TC_TWIN_CASES).index(case), B, H, KVH, Sq, Skv, D)
+    (qj, qt), (kj, kt), (vj, vt) = both(q, "bfloat16"), both(k, "bfloat16"), both(v, "bfloat16")
+    o, lse = tref.flash_attention_fwd_tc_twin(qt, kt, vt, causal=causal, window=window)
+    assert o.dtype == torch.bfloat16 and lse.shape == (B, H, Sq, 1)
+    want_kernel = jax_flash_attention_fwd(
+        qj, kj, vj, causal=causal, window=window, block_q=bq, block_k=bk, interpret=True
+    )
+    want_ref = jref.flash_attention_ref(qj, kj, vj, causal=causal, window=window)
+    np.testing.assert_allclose(f32(o), f32(want_kernel), **TOL["bfloat16"])
+    np.testing.assert_allclose(f32(o), f32(want_ref), **TOL["bfloat16"])
+    _, want_lse = jref.flash_attention_fwd_lse_chunked(qj, kj, vj, causal=causal, window=window)
+    np.testing.assert_allclose(f32(lse), f32(want_lse), **TOL["float32"])
+
+
 @pytest.mark.parametrize(
     "causal,window,q_offset", [(False, None, 0), (True, None, 0), (True, 3, 0), (True, 4, 5)]
 )
@@ -228,7 +253,7 @@ def test_library_name_follows_the_sources(tmp_path, monkeypatch):
 
 def test_sources_are_the_kernels_of_this_slice():
     names = {p.name for p in build.sources()}
-    assert {"rmsnorm.cu", "flash_attention.cu", "ssd_scan.cu", "common.cuh"} <= names
+    assert {"rmsnorm.cu", "flash_attention.cu", "ssd_scan.cu", "common.cuh", "hopper.cuh"} <= names
 
 
 # ---------------------------------------------------------------------------

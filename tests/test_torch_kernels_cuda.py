@@ -7,7 +7,14 @@ This file imports no JAX, so it runs on the GPU machine:
 Without a CUDA device every test skips.  The shapes are the cases of
 ``tests/kernels/test_flash_attention.py`` (shared with ``test_torch_kernels.py``),
 ragged edges the TPU kernel's tiling could not take, and the rmsnorm shapes of
-the gemma3-1b serving path and the internlm2-1.8b training path; for the SSD scan
+the gemma3-1b serving path and the internlm2-1.8b training path (K2 also at a width
+that is no multiple of its 16-byte vector, a single row, a row wider than its
+warp-per-row kernel holds, and rows off a 16-byte boundary).  K4's bf16 kernel (the
+tensor cores) is also held at the main paths' geometries and ragged edges
+(``TC_CASES``) against the twin of its rounding points,
+``ref.flash_attention_fwd_tc_twin``, which rounds P to bf16 before P·V as the kernel
+does, and its gradients through the chunked backward against plain autograd in bf16
+at the bf16 tolerance; its f32 cases run the SIMT kernel.  For the SSD scan
 (K5) the cases of ``tests/kernels/test_ssd_scan.py``, a ragged sequence, the
 mamba2-reduced shape and the mamba2-370m serving shape.  Tolerances: 2e-5 in f32
 (the same f32 math summed in another order), 2e-2 in bf16 (outputs rounded to bf16
@@ -152,8 +159,15 @@ def test_flash_attention_kernel_ragged_edges(cuda, dtype, Sq, Skv, D):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("shape", [(2, 256, 64), (120, 96), (4, 1024, 1152), (4, 1, 1152)])
+@pytest.mark.parametrize(
+    "shape",
+    [(2, 256, 64), (120, 96), (4, 1024, 1152), (4, 1, 1152), (8, 1024, 2048), (64, 100),
+     (1, 2048), (3, 5000)],
+)
 def test_rmsnorm_kernel_matches_plain(cuda, dtype, shape):
+    """K2 at the serving (1152) and training (2048) widths, a width that is no multiple
+    of the 16-byte vector (100), a single row, and a row wider than the warp-per-row
+    kernel holds (5000)."""
     rs = np.random.RandomState(0)
     x = torch.from_numpy(rs.randn(*shape).astype(np.float32)).to(cuda, DTYPES[dtype])
     w = torch.from_numpy((1.0 + 0.1 * rs.randn(shape[-1])).astype(np.float32)).to(cuda)
@@ -161,6 +175,69 @@ def test_rmsnorm_kernel_matches_plain(cuda, dtype, shape):
     got = rmsnorm_fwd(x, w)
     assert kernels.LAUNCHES["rmsnorm_fwd"] == before + 1
     np.testing.assert_allclose(f32(got), f32(tref.rmsnorm_ref(x, w)), **TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rmsnorm_kernel_takes_unaligned_rows(cuda, dtype):
+    """x and y that start off a 16-byte boundary take the scalar loads and stores."""
+    rs = np.random.RandomState(3)
+    flat = torch.from_numpy(rs.randn(16 * 1152 + 1).astype(np.float32)).to(cuda, DTYPES[dtype])
+    x = flat[1:].view(16, 1152)
+    assert x.data_ptr() % 16 != 0
+    w = torch.from_numpy((1.0 + 0.1 * rs.randn(1152)).astype(np.float32)).to(cuda)
+    np.testing.assert_allclose(f32(rmsnorm_fwd(x, w)), f32(tref.rmsnorm_ref(x, w)), **TOL[dtype])
+
+
+# K4's bf16 path (the tensor-core kernel) at the main paths' geometries and ragged
+# edges, name: (B, H, KVH, Sq, Skv, D, causal, window): gemma3-1b's local layers,
+# internlm2-1.8b's 16 query heads on 8 kv heads, and Sq, Skv off the 128-row query
+# tile and the 64-key KV tile at head_dim 128 and 256 (every row sees a column).
+TC_CASES = {
+    "gemma3_hd256_window512": (1, 4, 1, 1024, 1024, 256, True, 512),
+    "internlm2_hd128_gqa16_8": (1, 16, 8, 1024, 1024, 128, True, None),
+    "ragged_hd128": (2, 4, 2, 200, 333, 128, False, None),
+    "ragged_hd128_causal_window": (2, 4, 2, 200, 333, 128, True, 48),
+    "ragged_hd256_causal": (1, 4, 1, 77, 130, 256, True, None),
+}
+
+
+@pytest.mark.parametrize("case", sorted(TC_CASES))
+def test_flash_attention_tensor_core_kernel(cuda, case):
+    """The output against the plain version and against the twin of the kernel's
+    rounding points (ref.flash_attention_fwd_tc_twin), at the bf16 tolerance; lse
+    against the chunked twin's and the tensor-core twin's, at the f32 one."""
+    B, H, KVH, Sq, Skv, D, causal, window = TC_CASES[case]
+    q, k, v = (
+        torch.from_numpy(a).to(cuda, torch.bfloat16)
+        for a in make_qkv(12, B, H, KVH, Sq, Skv, D)
+    )
+    before = kernels.LAUNCHES["flash_attention_fwd"]
+    o, lse = flash_attention_fwd(q, k, v, causal=causal, window=window, return_lse=True)
+    assert kernels.LAUNCHES["flash_attention_fwd"] == before + 1
+    want = tref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    twin_o, twin_lse = tref.flash_attention_fwd_tc_twin(q, k, v, causal=causal, window=window)
+    _, chunked_lse = tref.flash_attention_fwd_lse_chunked(q, k, v, causal=causal, window=window)
+    np.testing.assert_allclose(f32(o), f32(want), **TOL["bfloat16"])
+    np.testing.assert_allclose(f32(o), f32(twin_o), **TOL["bfloat16"])
+    np.testing.assert_allclose(f32(lse), f32(chunked_lse), **TOL["float32"])
+    np.testing.assert_allclose(f32(lse), f32(twin_lse), **TOL["float32"])
+
+
+@pytest.mark.parametrize("D,window", [(64, None), (128, 48)])
+def test_flash_attention_function_gradients_bf16(cuda, D, window):
+    """K4 forward (the tensor-core kernel) + the chunked backward against plain
+    autograd (impl="ref") in bf16, at the bf16 tolerance."""
+    arrays = make_qkv(13, 1, 4, 2, 128, 128, D)
+    g = torch.from_numpy(np.random.RandomState(14).randn(1, 4, 128, D).astype(np.float32))
+    grads = {}
+    for impl in (None, "ref"):
+        q, k, v = (torch.from_numpy(a).to(cuda, torch.bfloat16).requires_grad_(True)
+                   for a in arrays)
+        o = ops.flash_attention(q, k, v, causal=True, window=window, impl=impl)
+        grads[impl] = torch.autograd.grad(o, (q, k, v), g.to(cuda, torch.bfloat16))
+    for a, b in zip(grads[None], grads["ref"]):
+        assert a.dtype == torch.bfloat16
+        np.testing.assert_allclose(f32(a), f32(b), **TOL["bfloat16"])
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
