@@ -8,14 +8,22 @@ Drives ``repro_torch`` only (never ``repro`` or ``jax``), on one CUDA device:
 1. the device: its name, and its power limit as nvidia-smi reports it;
 2. builds the hand-written kernels from ``src/repro_torch/csrc`` with nvcc, and
    prints ptxas's registers and spills of K4's tensor-core instantiations (bf16,
-   head_dim 128 and 256; they must not spill) and of K2;
+   head_dim 128 and 256), of K2 and of K5's five kernels (its three passes in bf16 and
+   f32; none of K4's or K5's may spill), and, where ``cuobjdump`` is installed, the
+   HMMA instructions of K5's bf16 passes (there must be some);
 3. holds each kernel against its plain PyTorch version on the card, at the test
    shapes (K4 in f32 on its SIMT kernel and in bf16 on its tensor-core kernel, plus
    bf16 cases at head_dim 256 with window 512, 16 query heads on 8 kv heads at Sq
    1024, and ragged Sq, Skv at head_dim 128 and 256; K2 also at a width of 100) and
    at the shapes of the gemma3-1b serving path, and times the kernel, the plain
    version and one PyTorch library call that computes the same function (a yardstick
-   the port never calls), with K4's achieved TFLOP/s and share of its bound;
+   the port never calls), with K4's achieved TFLOP/s and share of its bound.  Every
+   kernel and library call is read three ways: ``kernel_ms``, the card's time alone
+   (CUDA events with the card held behind the host by ``torch.cuda._sleep``, so no
+   host work in the wrapper enters it; the record's ``ms`` and ``library_ms``),
+   ``call_ms`` (events around the Python call, as before) and ``host_us`` per call.
+   A negative control, K2 with 0.5 ms of host sleep before its launch, must keep its
+   kernel_ms within 10% while its call_ms rises by about 0.5 ms;
 4. checks the whole slice on a small f32 model: the card with its kernels against
    the CPU with the plain versions;
 5. serves gemma3-1b at full width in bf16 (random weights from a seed): batch 4,
@@ -38,15 +46,17 @@ Drives ``repro_torch`` only (never ``repro`` or ``jax``), on one CUDA device:
 11. runs the fault-tolerant loop (``repro_torch.runtime.train_loop``) on the
     reduced internlm2 config in bf16 with checkpoints, one injected crash, resume
     and replay;
-12. holds the SSD scan kernel (K5) against the stepwise recurrence on the card, y
-    and the final state, at the test shapes (a ragged sequence and G > 1 among
-    them) and at the mamba2-370m serving shape, and times the kernel and the plain
-    stepwise and chunked versions;
+12. holds the SSD scan kernel (K5, three chunk-parallel passes) against the stepwise
+    recurrence on the card, y and the final state, at the test shapes (a ragged
+    sequence and G > 1 among them) and at the mamba2-370m serving shape, and prints
+    its kernel_ms, call_ms, host_us, scratch bytes and share of the bound beside the
+    plain stepwise and chunked versions' times;
 13. checks the Mamba slice on mamba2-reduced in f32: prefill and 4 decode steps,
     the card with its kernels against the CPU with the plain versions;
 14. serves mamba2-370m at full width in bf16 (random weights from a seed): batch 4,
     prompt 1024, 32 greedy tokens, through ``repro_torch.launch.serve``, counting
-    the kernel launches of the prefill and of every decode step;
+    the kernel launches of the prefill (48 K5 calls of three grid launches each)
+    and of every decode step;
 15. runs the same prefill with the plain versions and compares the logits, in bf16
     and with the same weights widened to f32;
 16. holds the gradients of the SSD op's autograd Function (K5 forward, plain
@@ -56,7 +66,8 @@ Drives ``repro_torch`` only (never ``repro`` or ``jax``), on one CUDA device:
     fusion tier in f32 and bf16 with broadcast operands of rank 3, 1 and 0, and
     every reduction root over leading, trailing, middle, two and all axes; then
     the four clusters of the Myia train step at their full shapes, timed against
-    their oracles;
+    their oracles, and cluster 2 (tanh's backward) against ``aten.tanh_backward``
+    by device time;
 18. checks the Myia LM train step at tiny dims in f32, the card with the K1
     kernels against the CPU with the oracles (loss and gradients);
 19. trains ``--compiler myia`` at full width (internlm2-1.8b's V 92544, D 2048,
@@ -201,7 +212,10 @@ def say(msg: str) -> None:
 
 def time_ms(torch, fn, reps: int = 30, warmup: int = 3) -> float:
     """Median milliseconds of one call, by CUDA events, with the L2 cache flushed
-    before each call (the serving path finds these operands cold or half-cold)."""
+    before each call (the serving path finds these operands cold or half-cold).  The
+    start event is recorded before the Python call, so where the wrapper's host time
+    exceeds the card's, this reading (``call_ms``) is the host's: see
+    :func:`kernel_ms` for the card's alone."""
     flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
     for _ in range(warmup):
         fn()
@@ -214,6 +228,100 @@ def time_ms(torch, fn, reps: int = 30, warmup: int = 3) -> float:
         e.record()
     torch.cuda.synchronize()
     return statistics.median(s.elapsed_time(e) for s, e in zip(starts, ends))
+
+
+def host_us(torch, fn, calls: int = 200) -> float:
+    """Microseconds of host time per call: ``calls`` calls back to back, without a
+    synchronise between them, by host clock."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    out = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    return out
+
+
+def kernel_ms(torch, fn, reps: int = 30, warmup: int = 3, host: float | None = None) -> float:
+    """Median milliseconds the card spends on one call, by CUDA events, with no host
+    time in them: after the L2 flush the card spins (``torch.cuda._sleep``) for twice
+    the call's host time plus 0.2 ms, so the call's launches are queued before the
+    start event fires and the events see the card's work alone.  ``host`` is the
+    call's host µs (measured here when not given)."""
+    s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    s.record()
+    torch.cuda._sleep(2_000_000)
+    e.record()
+    torch.cuda.synchronize()
+    cycles_per_ms = 2_000_000 / s.elapsed_time(e)  # the spin's rate at the card's clock now
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
+    for _ in range(warmup):
+        fn()
+    if host is None:
+        host = host_us(torch, fn, calls=20)
+    cycles = int((2 * host / 1e3 + 0.2) * cycles_per_ms)
+    starts = [torch.cuda.Event(enable_timing=True) for _ in range(reps)]
+    ends = [torch.cuda.Event(enable_timing=True) for _ in range(reps)]
+    for s, e in zip(starts, ends):
+        flush.zero_()
+        torch.cuda._sleep(cycles)
+        s.record()
+        fn()
+        e.record()
+    torch.cuda.synchronize()
+    return statistics.median(s.elapsed_time(e) for s, e in zip(starts, ends))
+
+
+def readings(torch, fn, reps: int = 30) -> dict:
+    """A kernel's or library call's three readings: ``kernel_ms`` (the card alone),
+    ``call_ms`` (events around the Python call) and ``host_us`` (per call)."""
+    host = host_us(torch, fn)
+    return {"kernel_ms": kernel_ms(torch, fn, reps=reps, host=host),
+            "call_ms": time_ms(torch, fn, reps=reps), "host_us": host}
+
+
+def record(name: str, route: str, source: str, replaces: str, err: float, kern: dict,
+           plain_ms: float, bound_ms: float, bound_by: str, lib: dict | None) -> dict:
+    """One row of the kernels' line: ``ms`` is the kernel's device time and
+    ``library_ms`` the library call's; each beside its call time and host µs."""
+    return dict(
+        name=name, route=route, source=source, replaces=replaces, max_abs_err=err,
+        ms=kern["kernel_ms"], call_ms=kern["call_ms"], host_us=kern["host_us"],
+        plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+        library_ms=None if lib is None else lib["kernel_ms"],
+        library_call_ms=None if lib is None else lib["call_ms"],
+        library_host_us=None if lib is None else lib["host_us"],
+    )
+
+
+def fmt(r: dict) -> str:
+    return f"kernel_ms {r['kernel_ms']:.4f} call_ms {r['call_ms']:.4f} host_us {r['host_us']:.1f}"
+
+
+# K5's kernels (csrc/ssd_scan.cu): every one is held to zero spills in phase 2
+SSD_ENTRIES = {"ssd_chunk_state_tc": "K5 chunk state, bf16 (mma.sync)",
+               "ssd_chunk_state_f32": "K5 chunk state, f32",
+               "ssd_state_pass": "K5 state passing",
+               "ssd_chunk_output_tc": "K5 chunk output, bf16 (mma.sync)",
+               "ssd_chunk_output_f32": "K5 chunk output, f32"}
+
+
+def sass_counts(lib: Path, opcode: str, entries: list[str]) -> dict | None:
+    """How many SASS instructions of ``opcode`` each kernel whose name contains one of
+    ``entries`` holds, by ``cuobjdump -sass``; None where cuobjdump is not installed."""
+    import shutil
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(tool).is_file():
+        return None
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
+                          timeout=300, check=True).stdout
+    counts, current = {key: 0 for key in entries}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            current = next((key for key in entries if key in line), None)
+        elif current is not None and re.search(rf"\b{opcode}\b", line):
+            counts[current] += 1
+    return counts
 
 
 def ptxas_entries(log: str) -> list[tuple[str, int, int, int]]:
@@ -437,32 +545,38 @@ def myia_phases(torch, dev, records, card: str) -> tuple[dict, dict]:
         err = (got - want).abs().max().item()
         n = int(np.prod(k.body_shape))
         bound_ms = max(k.bytes_moved / HBM_BYTES_PER_S, k.n_nodes * n / F32_FLOPS) * 1e3
-        lib_ms, lib_note = None, "no single PyTorch call"
+        lib_r, lib_note = None, "no single PyTorch call"
         lib = k1_library_call(torch, members[kname], a, want)
         if lib is not None:
             call_lib, lib_note = lib
             lib_out = call_lib()
             torch.testing.assert_close(lib_out, want, **k1_cases.REDUCE_TOL["float32"])
-            lib_ms = time_ms(torch, call_lib)
+            lib_r = readings(torch, call_lib)
             lib_note += f", max_abs_err {(lib_out - want).abs().max().item():.3e} vs the oracle"
-        rec = dict(
-            name=kname, route="triton", source="src/repro_torch/kernels/codegen.py",
-            replaces="src/repro/kernels/codegen.py:205", launches=fused_counts[kname],
-            max_abs_err=err,
-            ms=time_ms(torch, lambda: k.triton(*a)), plain_ms=time_ms(torch, lambda: k.oracle(*a)),
-            bound_ms=bound_ms,
-            bound_by="bytes" if k.bytes_moved / HBM_BYTES_PER_S >= k.n_nodes * n / F32_FLOPS
-            else "operations",
-            library_ms=lib_ms,
-        )
+        kern = readings(torch, lambda: k.triton(*a))
+        rec = record(kname, "triton", "src/repro_torch/kernels/codegen.py",
+                     "src/repro/kernels/codegen.py:205", err, kern,
+                     time_ms(torch, lambda: k.oracle(*a)), bound_ms,
+                     "bytes" if k.bytes_moved / HBM_BYTES_PER_S >= k.n_nodes * n / F32_FLOPS
+                     else "operations", lib_r)
+        rec["launches"] = fused_counts[kname]
         records[kname] = rec
         say(f"[k1] {kname} {k.kind} {members[kname]} body {k.body_shape} -> {k.out_shape}, "
             f"{k.launches_per_call} launch(es) a call: max_abs_err {err:.3e}"
-            f"{f' ({err_ulps} ulp)' if err_ulps is not None else ''} kernel_ms {rec['ms']:.4f} "
-            f"oracle_ms {rec['plain_ms']:.4f} library_ms "
-            f"{'null' if lib_ms is None else f'{lib_ms:.4f}'} "
-            f"({lib_note}) bound_ms {bound_ms:.4f} (bytes, "
-            f"{k.bytes_moved / 1e6:.1f} MB) = {bound_ms / rec['ms'] * 100:.1f}% of the bound")
+            f"{f' ({err_ulps} ulp)' if err_ulps is not None else ''} {fmt(kern)} oracle_ms "
+            f"{rec['plain_ms']:.4f}; library {'null' if lib_r is None else fmt(lib_r)} "
+            f"({lib_note}); bound_ms {bound_ms:.4f} (bytes, {k.bytes_moved / 1e6:.1f} MB) = "
+            f"{bound_ms / rec['ms'] * 100:.1f}% of the bound")
+        if members[kname] == ["mul", "sub", "mul"] and k.body_shape[-1] == 2048:
+            # cluster 2, tanh's backward at (8, 256, 2048): K1 is redesigned only if the
+            # card's own time says it is more than 10% behind aten.tanh_backward's
+            gap = rec["ms"] / rec["library_ms"] - 1
+            say(f"[k1] decision on {kname} (tanh's backward, (8, 256, 2048) f32), by device "
+                f"time: K1 {rec['ms']:.4f} ms against aten.tanh_backward "
+                f"{rec['library_ms']:.4f} ms ({gap:+.1%}); call_ms {rec['call_ms']:.4f} "
+                f"against {rec['library_call_ms']:.4f}; host_us {rec['host_us']:.1f} against "
+                f"{rec['library_host_us']:.1f}: "
+                f"{'more than 10% slower' if gap > 0.10 else 'within 10%'}")
     del captured
 
     # -- 20. one full-width step, kernels against kernel mode "ref" -------------------
@@ -496,6 +610,8 @@ def main() -> int:
     from repro_torch.kernels import LAUNCHES, build, ops, ref, reset_launches
     from repro_torch.kernels.flash_attention import flash_attention_fwd
     from repro_torch.kernels.rmsnorm import rmsnorm_bwd, rmsnorm_fwd
+    from repro_torch.kernels.ssd_scan import LAUNCHES_PER_CALL as SSD_LAUNCHES
+    from repro_torch.kernels.ssd_scan import plan as ssd_plan
     from repro_torch.kernels.ssd_scan import ssd_scan_fwd
     from repro_torch.launch.serve import make_prompts, serve_decode, serve_prefill
     from repro_torch.models import init_params, loss_fn
@@ -530,18 +646,25 @@ def main() -> int:
             say(f"[build] {line.strip()}")
     watched = {"fa_fwd_tc_kernelILi128E": "K4 tensor-core bf16, head_dim 128",
                "fa_fwd_tc_kernelILi256E": "K4 tensor-core bf16, head_dim 256",
-               "rmsnorm_fwd_kernel": "K2 warp-per-row"}
-    seen = 0
+               "rmsnorm_fwd_kernel": "K2 warp-per-row",
+               **SSD_ENTRIES}
+    seen = set()
     for entry, regs, spill_st, spill_ld in ptxas_entries(build.build_log()):
         for key, label in watched.items():
             if key in entry:
-                seen += 1
+                seen.add(key)
                 say(f"[build] {label} ({entry[-60:]}): {regs} registers at entry"
-                    f"{' (setmaxnreg: consumers 240, producer 24)' if 'tc' in key else ''}, "
-                    f"{spill_st} bytes spill stores, {spill_ld} bytes spill loads")
-                if "tc" in key:
+                    f"{' (setmaxnreg: consumers 240, producer 24)' if 'fa_fwd_tc' in key else ''}"
+                    f", {spill_st} bytes spill stores, {spill_ld} bytes spill loads")
+                if "rmsnorm" not in key:  # K4's tensor-core and every K5 instantiation
                     assert spill_st == spill_ld == 0, (entry, spill_st, spill_ld)
-    assert seen >= 3, "the build log names no K4 tensor-core or K2 instantiation"
+    assert seen == set(watched), f"the build log names no {set(watched) - seen}"
+    hmma = sass_counts(build.library_path(), "HMMA", [k for k in SSD_ENTRIES if "_tc" in k])
+    if hmma is None:
+        say("[build] cuobjdump not found: K5's SASS not inspected")
+    else:
+        say(f"[build] K5 bf16 passes, HMMA instructions in the SASS: {hmma}")
+        assert all(n > 0 for n in hmma.values()), hmma
 
     # -- 3. kernels against plain versions ----------------------------------
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -568,30 +691,32 @@ def main() -> int:
         bound_ms, bound_by = bound(
             2 * x.numel() * x.element_size() + w.numel() * 4, 4 * x.numel(), F32_FLOPS
         )
-        rec = dict(
-            name="rmsnorm_fwd", route="cuda", source="src/repro_torch/csrc/rmsnorm.cu",
-            replaces="src/repro/kernels/rmsnorm.py:41", max_abs_err=err,
-            ms=time_ms(torch, lambda: rmsnorm_fwd(x, w)),
-            plain_ms=time_ms(torch, lambda: ref.rmsnorm_ref(x, w)),
-            bound_ms=bound_ms, bound_by=bound_by,
-            library_ms=time_ms(torch, lambda: F.rms_norm(x, (x.shape[-1],), w_lib, 1e-6)),
-        )
-        # the host's time to launch one call: the timer above starts before the wrapper,
-        # so where it exceeds the card's time, the wrapper is what the reading shows
-        host_us = {}
-        for label, fn in (("kernel", lambda: rmsnorm_fwd(x, w)),
-                          ("F.rms_norm", lambda: F.rms_norm(x, (x.shape[-1],), w_lib, 1e-6))):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for _ in range(200):
-                fn()
-            host_us[label] = (time.perf_counter() - t0) / 200 * 1e6
-            torch.cuda.synchronize()
+        kern = readings(torch, lambda: rmsnorm_fwd(x, w))
+        lib = readings(torch, lambda: F.rms_norm(x, (x.shape[-1],), w_lib, 1e-6))
+        rec = record("rmsnorm_fwd", "cuda", "src/repro_torch/csrc/rmsnorm.cu",
+                     "src/repro/kernels/rmsnorm.py:41", err, kern,
+                     time_ms(torch, lambda: ref.rmsnorm_ref(x, w)), bound_ms, bound_by, lib)
         say(f"[kernels] rmsnorm_fwd {dtype_name(x)} x{tuple(x.shape)}: max_abs_err {err:.3e} "
-            f"kernel_ms {rec['ms']:.4f} plain_ms {rec['plain_ms']:.4f} library_ms "
-            f"{rec['library_ms']:.4f} (F.rms_norm) bound_ms {bound_ms:.6f} ({bound_by}); host "
-            f"us per call: kernel {host_us['kernel']:.1f}, F.rms_norm {host_us['F.rms_norm']:.1f}")
+            f"{fmt(kern)} plain_ms {rec['plain_ms']:.4f}; F.rms_norm {fmt(lib)}; bound_ms "
+            f"{bound_ms:.6f} ({bound_by}), {bound_ms / kern['kernel_ms']:.1%} of it")
         return rec
+
+    def negative_control(x, w):
+        """The timer's negative control: the same K2 call with 0.5 ms of host sleep in
+        the Python callable before the launch.  Its kernel_ms must stay within 10% of
+        the plain call's while its call_ms rises by about 0.5 ms."""
+        def slowed():
+            time.sleep(0.0005)
+            return rmsnorm_fwd(x, w)
+        fast, slow = readings(torch, lambda: rmsnorm_fwd(x, w)), readings(torch, slowed)
+        rise = slow["call_ms"] - fast["call_ms"]
+        drift = abs(slow["kernel_ms"] - fast["kernel_ms"]) / fast["kernel_ms"]
+        say(f"[timer] negative control, K2 x{tuple(x.shape)} with 0.5 ms of host sleep before "
+            f"the launch: kernel_ms {fast['kernel_ms']:.4f} -> {slow['kernel_ms']:.4f} "
+            f"({drift:.1%}, bound 10%); call_ms {fast['call_ms']:.4f} -> {slow['call_ms']:.4f} "
+            f"(+{rise:.4f} ms); host_us {fast['host_us']:.1f} -> {slow['host_us']:.1f}")
+        assert drift <= 0.10, ("kernel_ms moved with host time", fast, slow)
+        assert rise >= 0.4, ("call_ms did not see the host's 0.5 ms", fast, slow)
 
     def fa_path(q):
         """The K4 kernel a dtype runs (csrc/flash_attention.cu chooses by dtype)."""
@@ -617,22 +742,20 @@ def main() -> int:
         bound_ms, bound_by = bound(
             (2 * q.numel() + k.numel() + v.numel()) * q.element_size(), flops, peak
         )
-        rec = dict(
-            name="flash_attention_fwd", route="cuda",
-            source="src/repro_torch/csrc/flash_attention.cu",
-            replaces="src/repro/kernels/flash_attention.py:111", max_abs_err=err,
-            ms=time_ms(torch, lambda: flash_attention_fwd(q, k, v, causal=causal, window=window)),
-            plain_ms=time_ms(
-                torch, lambda: ref.flash_attention_ref(q, k, v, causal=causal, window=window)
-            ),
-            bound_ms=bound_ms, bound_by=bound_by, library_ms=time_ms(torch, lib),
-        )
+        kern = readings(torch, lambda: flash_attention_fwd(q, k, v, causal=causal,
+                                                           window=window))
+        lib_r = readings(torch, lib)
+        rec = record("flash_attention_fwd", "cuda", "src/repro_torch/csrc/flash_attention.cu",
+                     "src/repro/kernels/flash_attention.py:111", err, kern,
+                     time_ms(torch, lambda: ref.flash_attention_ref(q, k, v, causal=causal,
+                                                                    window=window)),
+                     bound_ms, bound_by, lib_r)
         say(f"[kernels] flash_attention_fwd {dtype_name(q)} ({fa_path(q)}) q{(B_, H_, Sq, D_)} "
             f"kv{(k.shape[1], Skv)} causal={causal} window={window}: max_abs_err {err:.3e} "
-            f"kernel_ms {rec['ms']:.4f} plain_ms {rec['plain_ms']:.4f} library_ms "
-            f"{rec['library_ms']:.4f} (SDPA, max_abs_err {lib_err:.3e}) bound_ms "
-            f"{bound_ms:.6f} ({bound_by}, {flops / 1e9:.3f} GFLOP) achieved "
-            f"{flops / rec['ms'] / 1e9:.2f} TFLOP/s, {bound_ms / rec['ms']:.1%} of the bound")
+            f"{fmt(kern)} plain_ms {rec['plain_ms']:.4f}; SDPA {fmt(lib_r)} (max_abs_err "
+            f"{lib_err:.3e}); bound_ms {bound_ms:.6f} ({bound_by}, {flops / 1e9:.3f} GFLOP) "
+            f"achieved {flops / rec['ms'] / 1e9:.2f} TFLOP/s, {bound_ms / rec['ms']:.1%} of the "
+            f"bound")
         return rec
 
 
@@ -658,19 +781,17 @@ def main() -> int:
         # (the kernel's per-block dw partials are its own cost, not the function's)
         nbytes = 3 * x.numel() * x.element_size() + 2 * D_ * 4
         bound_ms, bound_by = bound(nbytes, 12 * x.numel(), F32_FLOPS)
-        rec = dict(
-            name="rmsnorm_bwd", route="cuda", source="src/repro_torch/csrc/rmsnorm.cu",
-            replaces="src/repro/kernels/rmsnorm.py:72", max_abs_err=max(err, dw_err.max().item()),
-            ms=time_ms(torch, lambda: rmsnorm_bwd(x, w, dy)),
-            plain_ms=time_ms(torch, lambda: ref.rmsnorm_bwd_ref(x, w, dy)),
-            bound_ms=bound_ms, bound_by=bound_by,
-            library_ms=time_ms(torch, lambda: torch.autograd.grad(
-                y_lib, (x_lib, w_lib), dy, retain_graph=True)),
-        )
+        kern = readings(torch, lambda: rmsnorm_bwd(x, w, dy))
+        lib = readings(torch, lambda: torch.autograd.grad(y_lib, (x_lib, w_lib), dy,
+                                                          retain_graph=True))
+        rec = record("rmsnorm_bwd", "cuda", "src/repro_torch/csrc/rmsnorm.cu",
+                     "src/repro/kernels/rmsnorm.py:72", max(err, dw_err.max().item()), kern,
+                     time_ms(torch, lambda: ref.rmsnorm_bwd_ref(x, w, dy)), bound_ms, bound_by,
+                     lib)
         say(f"[kernels] rmsnorm_bwd {dtype_name(x)} x{tuple(x.shape)}: max_abs_err dx {err:.3e} "
-            f"dw {dw_err.max().item():.3e} kernel_ms {rec['ms']:.4f} plain_ms "
-            f"{rec['plain_ms']:.4f} library_ms {rec['library_ms']:.4f} (F.rms_norm backward) "
-            f"bound_ms {bound_ms:.6f} ({bound_by}, {nbytes / 1e6:.1f} MB, {blocks} blocks)")
+            f"dw {dw_err.max().item():.3e} {fmt(kern)} plain_ms {rec['plain_ms']:.4f}; "
+            f"F.rms_norm backward {fmt(lib)}; bound_ms {bound_ms:.6f} ({bound_by}, "
+            f"{nbytes / 1e6:.1f} MB, {blocks} blocks), {bound_ms / rec['ms']:.1%} of it")
         return rec
 
     def fa_lse_case(q, k, v, causal, window):
@@ -697,22 +818,18 @@ def main() -> int:
             (2 * q.numel() + k.numel() + v.numel()) * q.element_size() + B_ * H_ * Sq * 4,
             flops, peak,
         )
-        rec = dict(
-            name="flash_attention_fwd", route="cuda",
-            source="src/repro_torch/csrc/flash_attention.cu",
-            replaces="src/repro/kernels/flash_attention.py:111",
-            max_abs_err=max(err, lse_err),
-            ms=time_ms(torch, lambda: flash_attention_fwd(q, k, v, causal=causal, window=window,
-                                                          return_lse=True)),
-            plain_ms=time_ms(torch, lambda: ref.flash_attention_fwd_lse_chunked(
-                q, k, v, causal=causal, window=window)),
-            bound_ms=bound_ms, bound_by=bound_by, library_ms=time_ms(torch, lib),
-        )
+        kern = readings(torch, lambda: flash_attention_fwd(q, k, v, causal=causal,
+                                                           window=window, return_lse=True))
+        lib_r = readings(torch, lib)
+        rec = record("flash_attention_fwd", "cuda", "src/repro_torch/csrc/flash_attention.cu",
+                     "src/repro/kernels/flash_attention.py:111", max(err, lse_err), kern,
+                     time_ms(torch, lambda: ref.flash_attention_fwd_lse_chunked(
+                         q, k, v, causal=causal, window=window)), bound_ms, bound_by, lib_r)
         say(f"[kernels] flash_attention_fwd+lse {dtype_name(q)} ({fa_path(q)}) "
             f"q{(B_, H_, Sq, D_)} kv{(k.shape[1], Skv)} causal={causal} window={window}: "
-            f"max_abs_err o {err:.3e} lse {lse_err:.3e} kernel_ms {rec['ms']:.4f} plain_ms "
-            f"{rec['plain_ms']:.4f} (chunked twin) library_ms {rec['library_ms']:.4f} (SDPA) "
-            f"bound_ms {bound_ms:.6f} ({bound_by}, {flops / 1e9:.3f} GFLOP) achieved "
+            f"max_abs_err o {err:.3e} lse {lse_err:.3e} {fmt(kern)} plain_ms "
+            f"{rec['plain_ms']:.4f} (chunked twin); SDPA {fmt(lib_r)}; bound_ms "
+            f"{bound_ms:.6f} ({bound_by}, {flops / 1e9:.3f} GFLOP) achieved "
             f"{flops / rec['ms'] / 1e9:.2f} TFLOP/s, {bound_ms / rec['ms']:.1%} of the bound")
         return rec
 
@@ -876,6 +993,7 @@ def main() -> int:
     D, H, KVH, HD = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
     w = 1 + 0.1 * randn(D)
     records = {"rmsnorm_fwd": rms_case(randn(B, S, D, dtype=torch.bfloat16), w)}
+    negative_control(randn(B, S, D, dtype=torch.bfloat16), w)
     rms_case(randn(B, 1, D, dtype=torch.bfloat16), w)
     q = randn(B, H, S, HD, dtype=torch.bfloat16)
     k, v = randn(B, KVH, S, HD, dtype=torch.bfloat16), randn(B, KVH, S, HD, dtype=torch.bfloat16)
@@ -1163,21 +1281,24 @@ def main() -> int:
         flops = ssd_flops(*x.shape, B.shape[3])
         peak = BF16_TENSOR_FLOPS if x.dtype == torch.bfloat16 else F32_FLOPS
         bound_ms, bound_by = bound(nbytes, flops, peak)
-        rec = dict(
-            name="ssd_scan_fwd", route="cuda", source="src/repro_torch/csrc/ssd_scan.cu",
-            replaces="src/repro/kernels/ssd_scan.py:82", max_abs_err=err,
-            ms=time_ms(torch, lambda: ssd_scan_fwd(x, dt, A, B, C)),
-            plain_ms=time_ms(torch, lambda: ref.ssd_scan_ref(x, dt, A, B, C), reps=5),
-            bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
-        )
+        kern = readings(torch, lambda: ssd_scan_fwd(x, dt, A, B, C))
+        rec = record("ssd_scan_fwd", "cuda", "src/repro_torch/csrc/ssd_scan.cu",
+                     "src/repro/kernels/ssd_scan.py:82", err, kern,
+                     time_ms(torch, lambda: ref.ssd_scan_ref(x, dt, A, B, C), reps=5),
+                     bound_ms, bound_by, None)
         chunked_ms = time_ms(torch, lambda: ref.ssd_scan_ref_chunked(
             x, dt, A, B, C, chunk=ops.SSD_CHUNK), reps=5)
+        plan = ssd_plan(*x.shape[:3], B.shape[2], B.shape[3], x.shape[3], x.dtype)
+        scratch = sum(math.prod(shape) * torch.empty((), dtype=dt_).element_size()
+                      for shape, dt_ in filter(None, plan.scratch.values()))
         say(f"[ssd] ssd_scan_fwd {dtype_name(x)} x{tuple(x.shape)} B{tuple(B.shape)}: "
-            f"max_abs_err {err:.3e} kernel_ms {rec['ms']:.4f} plain_ms {rec['plain_ms']:.4f} "
-            f"(stepwise) chunked_ms {chunked_ms:.4f} library_ms null (no single PyTorch "
-            f"call) bound_ms {bound_ms:.6f} ({bound_by}, {nbytes / 1e6:.1f} MB, "
-            f"{flops / 1e9:.2f} GFLOP) achieved {nbytes / rec['ms'] / 1e6:.1f} GB/s, "
-            f"{flops / rec['ms'] / 1e9:.2f} TFLOP/s")
+            f"max_abs_err {err:.3e} {fmt(kern)} plain_ms {rec['plain_ms']:.4f} (stepwise) "
+            f"chunked_ms {chunked_ms:.4f} library_ms null (no single PyTorch call) bound_ms "
+            f"{bound_ms:.6f} ({bound_by}, {nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP), "
+            f"{bound_ms / rec['ms']:.1%} of it; achieved {nbytes / rec['ms'] / 1e6:.1f} GB/s, "
+            f"{flops / rec['ms'] / 1e9:.2f} TFLOP/s; {len(plan.passes)} passes "
+            f"{[(p_.name, p_.grid, p_.smem) for p_ in plan.passes]}, chunk {plan.chunk}, "
+            f"{plan.heads_per_block} heads a block, scratch {scratch / 1e6:.1f} MB")
         return rec
 
     for dtype in (torch.float32, torch.bfloat16):
@@ -1253,8 +1374,9 @@ def main() -> int:
     say(f"[serve-mamba2] launches: prefill {mprefill_counts}; decode {mdecode_counts} over "
         f"{MGEN} steps")
     none = {"flash_attention_fwd": 0, "rmsnorm_bwd": 0, "fused_map": 0, "fused_reduce": 0}
-    assert mprefill_counts == {**none, "ssd_scan_fwd": nl, "rmsnorm_fwd": 2 * nl + 1}, \
-        mprefill_counts
+    # K5's three passes are three grid launches a call
+    assert mprefill_counts == {**none, "ssd_scan_fwd": nl * SSD_LAUNCHES,
+                               "rmsnorm_fwd": 2 * nl + 1}, mprefill_counts
     assert all(c == {**none, "ssd_scan_fwd": 0, "rmsnorm_fwd": 2 * nl + 1}
                for c in step_counts), step_counts
     assert mlogits.shape == (MB, mcfg.vocab) and mtokens.shape == (MB, MGEN)
@@ -1329,7 +1451,8 @@ def main() -> int:
     kernels_line = [
         {**{key: rec[key] for key in ("name", "route", "source", "replaces", "launches",
                                       "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                                      "library_ms")},
+                                      "library_ms", "call_ms", "host_us", "library_call_ms",
+                                      "library_host_us")},
          "launches_by_path": {"serve": launches_on(serve_counts, {}, rec),
                               "train": launches_on(train_counts, {}, rec),
                               "serve_mamba2": launches_on(mamba_counts, {}, rec),

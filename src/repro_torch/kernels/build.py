@@ -150,9 +150,11 @@ def load() -> ctypes.CDLL:
         lib.flash_attention_fwd.restype = i
         lib.flash_attention_fwd_smem.argtypes = [i, i]
         lib.flash_attention_fwd_smem.restype = ctypes.c_longlong
-        lib.ssd_scan_fwd.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, i, p]
+        lib.ssd_scan_fwd.argtypes = [p] * 10 + [i] * 9 + [p]
         lib.ssd_scan_fwd.restype = i
-        lib.ssd_scan_fwd_smem.argtypes = [i, i]
+        lib.ssd_scan_fwd_smem.argtypes = [i, i, i, i]
         lib.ssd_scan_fwd_smem.restype = ctypes.c_longlong
+        lib.ssd_scan_fwd_chunk.argtypes = [i]
+        lib.ssd_scan_fwd_chunk.restype = i
         _LIB = lib
     return _LIB

@@ -376,6 +376,72 @@ def ssd_scan_ref_chunked(
     return y.reshape(Bt, nc * L, H, P)[:, :S].to(x.dtype), h
 
 
+def _bf16(t: torch.Tensor) -> torch.Tensor:
+    """``t`` rounded to bf16 (nearest even) and widened back to f32."""
+    return t.to(torch.bfloat16).to(torch.float32)
+
+
+def _hi_lo(t: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """``t`` as a bf16 pair, hi = bf16(t) and lo = bf16(t - hi), widened to f32."""
+    hi = _bf16(t)
+    return hi, _bf16(t - hi)
+
+
+def ssd_scan_fwd_tc_twin(
+    x: torch.Tensor,
+    dt: torch.Tensor,
+    A: torch.Tensor,
+    B: torch.Tensor,
+    C: torch.Tensor,
+    chunk: int = 128,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The rounding points of K5's bf16 tensor-core passes (``csrc/ssd_scan.cu``), in
+    plain PyTorch, for the tests: (y in x.dtype, final state (Bt, H, N, P) f32).
+
+    Per chunk of ``chunk`` rows (the last zero-padded with dt = 0): C·Bᵀ in f32 from
+    the bf16 inputs; each f32 operand of the other products (the masked, decayed
+    scores before ·x, ``w_j·x_j`` in the state product, h_in before C·h_in) split into
+    a bf16 hi and lo pair, both multiplied and summed in f32; the state recurrence in
+    f32; C·h_in scaled by exp(cum_i) after the product.  No main path runs it."""
+    Bt, S, H, P = x.shape
+    N = B.shape[3]
+    L = chunk
+    nc = -(-S // L)
+    pad = nc * L - S
+    F = torch.nn.functional
+    xf = F.pad(x.to(torch.float32), (0, 0, 0, 0, 0, pad)).reshape(Bt, nc, L, H, P)
+    dtf = F.pad(dt.to(torch.float32), (0, 0, 0, pad)).reshape(Bt, nc, L, H)
+    Bf = F.pad(_groups_to_heads(B, H, 2), (0, 0, 0, 0, 0, pad)).reshape(Bt, nc, L, H, N)
+    Cf = F.pad(_groups_to_heads(C, H, 2), (0, 0, 0, 0, 0, pad)).reshape(Bt, nc, L, H, N)
+    cum = torch.cumsum(A.to(torch.float32) * dtf, dim=2)  # (Bt, nc, L, H)
+
+    # chunk output, intra: (hi + lo of the scores) · x
+    cb = torch.einsum("bclhn,bcmhn->bclmh", Cf, Bf)
+    seg = cum[:, :, :, None] - cum[:, :, None, :]
+    tri = torch.ones((L, L), dtype=torch.bool, device=x.device).tril()[None, None, :, :, None]
+    s = torch.where(tri, cb * torch.exp(torch.where(tri, seg, torch.zeros_like(seg)))
+                    * dtf[:, :, None], torch.zeros_like(seg))
+    y_intra = sum(torch.einsum("bclmh,bcmhp->bclhp", part, xf) for part in _hi_lo(s))
+
+    # chunk state: Bᵀ · (hi + lo of w·x)
+    w = torch.exp(cum[:, :, -1:, :] - cum) * dtf  # (Bt, nc, L, H)
+    dH = sum(torch.einsum("bclhn,bclhp->bchnp", Bf, part) for part in _hi_lo(w[..., None] * xf))
+
+    # state passing, f32
+    decay = torch.exp(cum[:, :, -1])  # (Bt, nc, H)
+    h = torch.zeros((Bt, H, N, P), dtype=torch.float32, device=x.device)
+    h_in = []
+    for c in range(nc):
+        h_in.append(h)
+        h = decay[:, c, :, None, None] * h + dH[:, c]
+
+    # chunk output, inter: exp(cum_i) · (C · (hi + lo of h_in))
+    inter = sum(torch.einsum("bclhn,bchnp->bclhp", Cf, part)
+                for part in _hi_lo(torch.stack(h_in, 1)))
+    y = torch.exp(cum)[..., None] * inter + y_intra
+    return y.reshape(Bt, nc * L, H, P)[:, :S].to(x.dtype), h
+
+
 def ssd_step_ref(
     h: torch.Tensor,
     x_t: torch.Tensor,

@@ -12,6 +12,7 @@ after f32 math).
 """
 
 import functools
+import importlib
 
 import jax
 import jax.numpy as jnp
@@ -35,7 +36,12 @@ from repro_torch.kernels.rmsnorm import check_bwd_args as rms_check_bwd_args
 from repro_torch.kernels.rmsnorm import rmsnorm_bwd, rmsnorm_fwd
 from repro_torch.kernels.ssd_scan import check_args as ssd_check_args
 from repro_torch.kernels.ssd_scan import ssd_scan_fwd
-from test_torch_kernels_cuda import FA_CASES, extreme_decay_ssd, make_qkv, make_ssd
+from test_torch_kernels_cuda import (
+    FA_CASES, SSD_CASES, SSD_RAGGED_TC_CASES, extreme_decay_ssd, make_qkv, make_ssd,
+)
+
+# the module (repro_torch.kernels exports the op ssd_scan under the same name)
+tssd = importlib.import_module("repro_torch.kernels.ssd_scan")
 
 DTYPES = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.bfloat16)}
 TOL = {"float32": dict(rtol=2e-5, atol=2e-5), "bfloat16": dict(rtol=2e-2, atol=2e-2)}
@@ -576,6 +582,88 @@ def test_ssd_scan_serving_form_returns_the_state():
         np.testing.assert_allclose(f32(h), f32(want_h), **SSD_TOL)
     with torch.no_grad():
         assert ops.ssd_scan(ins[0].clone().requires_grad_(True), *ins[1:]).grad_fn is None
+
+
+# K5's bf16 passes multiply the bf16 inputs by f32 operands (the masked, decayed scores,
+# w·x, h_in) taken as bf16 hi + lo pairs: two MMAs keep ~16 bits of each mantissa,
+# where a single bf16 rounding of the scores or of h_in takes y past 2e-2 at the
+# mamba2-370m serving shape.  Their plain twin (ref.ssd_scan_fwd_tc_twin, chunk 128)
+# keeps the reference's tolerances on every SSD_FWD_CASES entry and at dt·A down to
+# -62: y at the bf16 2e-2, the f32 state at 2e-4.  x, B, C in bf16, dt and A in f32,
+# as the model hands them to the kernel.
+SSD_TWIN_CASES = {**{k: v[:6] for k, v in SSD_FWD_CASES.items()}, "extreme_decay": None}
+
+
+@pytest.mark.parametrize("case", sorted(SSD_TWIN_CASES))
+def test_ssd_tensor_core_twin_keeps_the_reference_tolerance(case):
+    shape = SSD_TWIN_CASES[case]
+    arrays = extreme_decay_ssd() if shape is None else make_ssd(
+        30 + sorted(SSD_TWIN_CASES).index(case), *shape)
+    (xj, xt), (dtj, dtt), (Aj, At), (Bj, Btt), (Cj, Ct) = [
+        both(a, "bfloat16" if i in (0, 3, 4) else "float32") for i, a in enumerate(arrays)]
+    y, h = tref.ssd_scan_fwd_tc_twin(xt, dtt, At, Btt, Ct)
+    assert y.dtype == torch.bfloat16 and h.dtype == torch.float32
+    chunk = SSD_FWD_CASES[case][6] if shape is not None else xt.shape[1]
+    want_kernel = jax_ssd_scan_fwd(xj, dtj, Aj, Bj, Cj, chunk=chunk, interpret=True)
+    want_ref = jref.ssd_scan_ref(xj, dtj, Aj, Bj, Cj)
+    for want in (want_kernel, want_ref):
+        np.testing.assert_allclose(f32(y), f32(want[0]), **TOL["bfloat16"])
+        np.testing.assert_allclose(f32(h), f32(want[1]), **SSD_TOL)
+
+
+def test_ssd_tensor_core_twin_takes_ragged_shapes():
+    """The twin where the kernel zero-pads: S off the chunk, N and P off the MMA tile
+    (the card cases of SSD_RAGGED_TC_CASES), against the stepwise plain version."""
+    for i, shape in enumerate(SSD_RAGGED_TC_CASES.values()):
+        x, dt, A, B, C = (torch.from_numpy(a) for a in make_ssd(40 + i, *shape))
+        x, B, C = x.bfloat16(), B.bfloat16(), C.bfloat16()
+        y, h = tref.ssd_scan_fwd_tc_twin(x, dt, A, B, C)
+        want_y, want_h = tref.ssd_scan_ref(x, dt, A, B, C)
+        np.testing.assert_allclose(f32(y), f32(want_y), **TOL["bfloat16"])
+        np.testing.assert_allclose(f32(h), f32(want_h), **SSD_TOL)
+
+
+# the mamba2-370m serving shape, the card-test shapes and the ragged bf16 ones
+SSD_PLAN_SHAPES = {"serve_mamba2_370m": (4, 1024, 32, 64, 1, 128), **SSD_CASES,
+                   **SSD_RAGGED_TC_CASES}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", sorted(SSD_PLAN_SHAPES))
+def test_ssd_plan_fits_and_covers(case, dtype):
+    """Every pass fits the H100's 227 KB of shared memory a block, the chunk state and
+    chunk output grids cover every (batch, chunk, head), the state-passing grid every
+    state element, and the wrapper counts one launch per pass."""
+    Bt, S, H, P, G, N = SSD_PLAN_SHAPES[case]
+    p = tssd.plan(Bt, S, H, G, N, P, DTYPES[dtype][1])
+    assert p.chunk == tssd.CHUNK[dtype] and p.n_chunks == -(-S // p.chunk)
+    assert p.n_chunks * p.chunk >= S > (p.n_chunks - 1) * p.chunk
+    assert len(p.passes) == tssd.LAUNCHES_PER_CALL == 3
+    assert all(ps.smem <= tssd.SMEM_LIMIT and ps.threads == 256 for ps in p.passes)
+    assert (H // G) % p.heads_per_block == 0 and p.heads_per_block <= tssd.MAX_HEADS_PER_BLOCK
+    assert (H // G) % p.state_heads_per_block == 0
+    assert p.state_heads_per_block <= tssd.MAX_STATE_HEADS_PER_BLOCK
+    state, passing, output = p.passes
+    assert passing.grid[1:] == (H, Bt) and passing.grid[0] * passing.threads * 4 >= N * P
+    assert state.grid == (p.n_chunks, H // p.state_heads_per_block, Bt)
+    assert output.grid == (p.n_chunks, H // p.heads_per_block, Bt)
+    assert p.scratch["dH"] == ((Bt, p.n_chunks, H, N, P), torch.float32)
+    assert p.scratch["cum"] == ((Bt, p.n_chunks, H, p.chunk), torch.float32)
+    assert p.scratch["h_in"] == (((Bt, p.n_chunks, H, 2, N, P), torch.bfloat16)
+                                 if dtype == "bfloat16" else None)
+
+
+def test_ssd_plan_at_the_serving_shape():
+    """mamba2-370m, x (4,1024,32,64), B/C (4,1024,1,128), bf16: 8 chunks of 128; the
+    chunk state pass takes the one group's 32 heads in tiles of 4 (B loaded 8 times a
+    chunk instead of 32; 256 blocks, 2 an SM), the chunk output pass in tiles of 8
+    (C·Bᵀ computed 4 times a chunk instead of 32; 128 blocks, one wave on 132 SMs);
+    33.5 MB of f32 chunk states and as much of h_in (a bf16 hi and lo pair a chunk)."""
+    p = tssd.plan(4, 1024, 32, 1, 128, 64, torch.bfloat16)
+    assert (p.chunk, p.n_chunks, p.heads_per_block, p.state_heads_per_block) == (128, 8, 8, 4)
+    assert [ps.grid for ps in p.passes] == [(8, 8, 4), (8, 32, 4), (8, 4, 4)]
+    assert [ps.smem for ps in p.passes] == [92_192, 0, 182_272]
+    assert np.prod(p.scratch["dH"][0]) * 4 == np.prod(p.scratch["h_in"][0]) * 2 == 33_554_432
 
 
 def _ssd_args(Bt=1, S=8, H=4, P=8, G=2, N=8, dtype=torch.float32):

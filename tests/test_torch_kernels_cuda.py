@@ -33,17 +33,22 @@ operand at rank 3, 1 and 0, in f32 and bf16, within an ulp (``power`` two), and
 every reduction root over leading, trailing, middle, two and all axes, allclose.
 """
 
+import importlib
+
 import numpy as np
 import pytest
 import torch
 
 from repro_torch import kernels
-from repro_torch.kernels import k1_cases, ops
+from repro_torch.kernels import build, k1_cases, ops
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels.flash_attention import flash_attention_fwd
 from repro_torch.kernels.rmsnorm import rmsnorm_bwd, rmsnorm_fwd
 from repro_torch.kernels.ssd_scan import ssd_scan_fwd
 from repro_torch.models import model as tmodel
+
+# the module (repro_torch.kernels exports the op ssd_scan under the same name)
+tssd = importlib.import_module("repro_torch.kernels.ssd_scan")
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 TOL = {"float32": dict(rtol=2e-5, atol=2e-5), "bfloat16": dict(rtol=2e-2, atol=2e-2)}
@@ -83,6 +88,13 @@ SSD_CASES = {
     "groups_2_of_1": (1, 32, 2, 16, 1, 32),
     "ragged_200": (2, 200, 4, 16, 2, 32),
     "mamba2_reduced": (2, 12, 8, 16, 1, 16),
+}
+# K5's bf16 passes zero-pad N and P to the 16 of an MMA tile and the sequence to the
+# chunk of 128: N and P off 16 (and off 8, where rows take 8-byte copies) at a ragged S
+SSD_RAGGED_TC_CASES = {
+    "n20_p12_s77": (2, 77, 4, 12, 2, 20),
+    "n36_p24_s300": (1, 300, 6, 24, 3, 36),
+    "n4_p4_s129": (2, 129, 2, 4, 1, 4),
 }
 
 
@@ -368,7 +380,7 @@ def test_ssd_scan_kernel_matches_stepwise(cuda, case, dtype):
     x, dt, A, B, C = _ssd_on(cuda, make_ssd(9, *shape), dtype)
     before = kernels.LAUNCHES["ssd_scan_fwd"]
     y, hT = ssd_scan_fwd(x, dt, A, B, C)
-    assert kernels.LAUNCHES["ssd_scan_fwd"] == before + 1
+    assert kernels.LAUNCHES["ssd_scan_fwd"] == before + tssd.LAUNCHES_PER_CALL
     Bt, S, H, P, G, N = shape
     assert y.dtype == x.dtype and y.shape == x.shape
     assert hT.dtype == torch.float32 and hT.shape == (Bt, H, N, P)
@@ -376,6 +388,46 @@ def test_ssd_scan_kernel_matches_stepwise(cuda, case, dtype):
     np.testing.assert_allclose(f32(y), f32(want_y), **(SSD_TOL if dtype == "float32" else
                                                        TOL["bfloat16"]))
     np.testing.assert_allclose(f32(hT), f32(want_h), **SSD_TOL)
+
+
+@pytest.mark.parametrize("case", sorted(SSD_CASES) + ["serve_mamba2_370m"])
+def test_ssd_scan_tensor_core_kernel_matches_its_twin(cuda, case):
+    """The bf16 passes against ref.ssd_scan_fwd_tc_twin (their rounding points in
+    plain PyTorch): y at the bf16 2e-2, the state at 2e-4."""
+    shape = SSD_CASES.get(case, (4, 1024, 32, 64, 1, 128))
+    x, dt, A, B, C = _ssd_on(cuda, make_ssd(12, *shape), "bfloat16")
+    y, hT = ssd_scan_fwd(x, dt, A, B, C)
+    want_y, want_h = tref.ssd_scan_fwd_tc_twin(x, dt, A, B, C)
+    np.testing.assert_allclose(f32(y), f32(want_y), **TOL["bfloat16"])
+    np.testing.assert_allclose(f32(hT), f32(want_h), **SSD_TOL)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", sorted(SSD_RAGGED_TC_CASES))
+def test_ssd_scan_kernel_takes_ragged_state_and_head_dims(cuda, case, dtype):
+    """N and P off the MMA tile at a ragged S, against the stepwise recurrence and,
+    in bf16, the twin."""
+    x, dt, A, B, C = _ssd_on(cuda, make_ssd(13, *SSD_RAGGED_TC_CASES[case]), dtype)
+    y, hT = ssd_scan_fwd(x, dt, A, B, C)
+    wants = [tref.ssd_scan_ref(x, dt, A, B, C)]
+    if dtype == "bfloat16":
+        wants.append(tref.ssd_scan_fwd_tc_twin(x, dt, A, B, C))
+    for want_y, want_h in wants:
+        np.testing.assert_allclose(f32(y), f32(want_y), **(SSD_TOL if dtype == "float32" else
+                                                           TOL["bfloat16"]))
+        np.testing.assert_allclose(f32(hT), f32(want_h), **SSD_TOL)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_plan_matches_the_kernels(cuda, dtype):
+    """plan()'s chunk and shared memory are the C side's at every test shape."""
+    lib, code = build.load(), build.DTYPE_CODES[dtype]
+    for Bt, S, H, P, G, N in [*SSD_CASES.values(), *SSD_RAGGED_TC_CASES.values(),
+                              (4, 1024, 32, 64, 1, 128)]:
+        p = tssd.plan(Bt, S, H, G, N, P, DTYPES[dtype])
+        assert p.chunk == lib.ssd_scan_fwd_chunk(code)
+        assert [ps.smem for ps in p.passes] == [lib.ssd_scan_fwd_smem(N, P, code, i)
+                                                for i in range(3)]
 
 
 def test_ssd_scan_kernel_extreme_decay_is_finite(cuda):
@@ -398,7 +450,8 @@ def test_ssd_scan_function_gradients(cuda, case):
         ins = [torch.from_numpy(a).to(cuda).requires_grad_(True) for a in arrays]
         before = kernels.LAUNCHES["ssd_scan_fwd"]
         y = ops.ssd_scan(*ins, impl=impl)
-        assert kernels.LAUNCHES["ssd_scan_fwd"] - before == (1 if impl is None else 0)
+        assert kernels.LAUNCHES["ssd_scan_fwd"] - before == (
+            tssd.LAUNCHES_PER_CALL if impl is None else 0)
         grads[impl] = torch.autograd.grad(y, ins, g.to(cuda))
     for impl in (None, "chunked"):
         for a, b in zip(grads[impl], grads["ref"]):

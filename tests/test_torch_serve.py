@@ -27,6 +27,7 @@ from repro_torch import resolve_device
 from repro_torch.kernels import LAUNCHES, ops, ref, reset_launches
 from repro_torch.kernels.flash_attention import check_args as fa_check_args
 from repro_torch.kernels.rmsnorm import check_args as rms_check_args
+from repro_torch.kernels.ssd_scan import LAUNCHES_PER_CALL as SSD_LAUNCHES
 from repro_torch.kernels.ssd_scan import check_args as ssd_check_args
 from repro_torch.launch import serve
 from repro_torch.models import init_params
@@ -126,7 +127,7 @@ def checked_kernels(monkeypatch):
 
     def ssd_scan_fwd(x, dt, A, B, C):
         ssd_check_args(x, dt, A, B, C)
-        LAUNCHES["ssd_scan_fwd"] += 1
+        LAUNCHES["ssd_scan_fwd"] += SSD_LAUNCHES  # one per pass of the kernel
         return ref.ssd_scan_ref(x, dt, A, B, C)
 
     monkeypatch.setattr(ops, "flash_attention_fwd", flash_attention_fwd)
@@ -143,7 +144,8 @@ def checked_kernels(monkeypatch):
 def test_main_path_hands_kernels_what_they_take(checked_kernels, dtype, arch):
     """Per prefill K4 (attention layers) or K5 (Mamba layers) once per layer and K2
     twice per layer plus the final norm; per decode step K2 alone (mamba2-370m at
-    full width: 48 K5 and 97 K2 per prefill, 97 K2 per step)."""
+    full width: 48 K5 calls of LAUNCHES_PER_CALL grid launches each and 97 K2 per
+    prefill, 97 K2 per step)."""
     cfg = dataclasses.replace(
         tconfigs.get_config(arch, reduced=True), param_dtype=dtype, compute_dtype=dtype
     )
@@ -154,7 +156,7 @@ def test_main_path_hands_kernels_what_they_take(checked_kernels, dtype, arch):
     logits, caches = serve.serve_prefill(cfg, params, prompts, P + GEN)
     want = {"flash_attention_fwd": 0, "ssd_scan_fwd": 0, "rmsnorm_fwd": 2 * L + 1,
             "rmsnorm_bwd": 0, "fused_map": 0, "fused_reduce": 0}
-    assert LAUNCHES == {**want, mixer_kernel: L}
+    assert LAUNCHES == {**want, mixer_kernel: L * (SSD_LAUNCHES if arch == "mamba2-370m" else 1)}
     reset_launches()
     toks, kept = serve.serve_decode(cfg, params, logits, caches, P, GEN, keep_logits=True)
     assert LAUNCHES == {

@@ -39,6 +39,7 @@ from repro_torch.kernels import LAUNCHES, ops, ref, reset_launches
 from repro_torch.kernels.flash_attention import check_args as fa_check_args
 from repro_torch.kernels.rmsnorm import check_args as rms_check_args
 from repro_torch.kernels.rmsnorm import check_bwd_args as rms_check_bwd_args
+from repro_torch.kernels.ssd_scan import LAUNCHES_PER_CALL as SSD_LAUNCHES
 from repro_torch.kernels.ssd_scan import check_args as ssd_check_args
 from repro_torch.launch import train as train_main
 from repro_torch.models import loss_fn
@@ -223,7 +224,7 @@ def checked_kernels(monkeypatch):
 
     def ssd_scan_fwd(x, dt, A, B, C):
         ssd_check_args(x, dt, A, B, C)
-        LAUNCHES["ssd_scan_fwd"] += 1
+        LAUNCHES["ssd_scan_fwd"] += SSD_LAUNCHES  # one per pass of the kernel
         return ref.ssd_scan_ref(x, dt, A, B, C)
 
     monkeypatch.setattr(ops, "flash_attention_fwd", flash_attention_fwd)
@@ -254,7 +255,8 @@ def test_train_step_hands_kernels_what_they_take(checked_kernels, name, dtype):
     ds = SyntheticLM(DataConfig(vocab=tc.vocab, seq_len=16, global_batch=2))
     state, metrics = make_train_step(tc, opt)(state, to_device(ds.batch(0), CPU))
     assert LAUNCHES == {"flash_attention_fwd": 0, "ssd_scan_fwd": 0,
-                        mixer_kernel: L + R, "rmsnorm_fwd": 2 * L + 1 + 2 * R,
+                        mixer_kernel: (L + R) * (SSD_LAUNCHES if name == "mamba2-370m" else 1),
+                        "rmsnorm_fwd": 2 * L + 1 + 2 * R,
                         "rmsnorm_bwd": 2 * L + 1, "fused_map": 0, "fused_reduce": 0}
     assert bool(torch.isfinite(metrics["loss"])) and int(state["step"]) == 1
     assert all(a.dtype == b.dtype for a, b in zip(
