@@ -77,7 +77,28 @@ Drives ``repro_torch`` only (never ``repro`` or ``jax``), on one CUDA device:
     reduce's two passes), then two steps of ``python -m
     repro_torch.launch.train --compiler myia`` with its checkpoint;
 20. computes one full-width step's loss and gradients with the K1 kernels and in
-    kernel mode ``"ref"`` (the oracles) from the same state, and compares them.
+    kernel mode ``"ref"`` (the oracles) from the same state, and compares them;
+21. holds K4's non-causal modes at this slice's shapes (whisper-medium's encoder
+    self-attention at 1500 frames and its cross-attention from 416 prompt tokens, at
+    head_dim 64; llama-3.2-vision-11b's GQA cross-attention over 1600 image tokens)
+    against the plain version and the tensor-core twin, its ``lse`` at the f32
+    tolerance, and K5 at the Jamba block's 128 SSM heads against the stepwise
+    recurrence, each timed three ways beside SDPA (K4) and its bound;
+22. checks the reduced configs of the five MoE, cross-attention and encoder-decoder
+    archs in f32: prefill (logits and every cache) and 4 decode steps, the card with
+    its kernels against the CPU with the plain versions;
+23. serves whisper-medium at full width in bf16 (random weights from a seed): batch 4,
+    1500 encoder frames, prompt 416, 32 greedy tokens, through
+    ``repro_torch.launch.serve``, with exactly 72 K4 and 122 K2 launches a prefill and
+    73 K2 a decode step; then the same prefill with the plain versions, in bf16 and
+    with the same weights widened to f32;
+24. the same for llama-3.2-vision-11b (1600 image tokens, prompt 1024): 48 K4 and 89
+    K2 a prefill, 89 K2 a decode step; its bf16 weights are freed as they are widened;
+25. the same for one Jamba block (8 of jamba-v0.1-52b's 32 layers: the whole model
+    does not fit on one card) at prompt 1024: 1 K4, 21 K5 (7 calls of 3 passes) and
+    24 K2 a prefill, 24 K2 a decode step, and the share of (token, k) routing choices
+    on which the kernels and the plain versions agree; its f32 comparison runs on the
+    block's first 4 layers.
 
 A failed phase raises and the script exits non-zero.  The last lines are the
 kernels' record, the card's name and power limit, and the device line.
@@ -169,6 +190,38 @@ MYIA_REF_LOSS_REL, MYIA_REF_GRAD_REL = 1e-6, 1e-5
 # the Myia LM step at full width: internlm2-1.8b's vocab and width (V 92544, D 2048,
 # H 8192), the reference driver's batch and sequence, plain SGD
 MYIA_B, MYIA_S, MYIA_LR, MYIA_STEPS = 8, 256, 3e-4, 20
+
+# This slice's serving paths (phases 23-25): whisper-medium, llama-3.2-vision-11b and
+# one Jamba block, batch 4, 32 greedy tokens; whisper's 416 prompt tokens and 32
+# generated ones fill its published decoder context of 448, after 1500 encoder frames.
+XA_B, XA_GEN, WHISPER_PROMPT, XA_PROMPT = 4, 32, 416, 1024
+# Jamba v0.1 at full width has 32 layers (52B, ~104 GB in bf16): one whole period of 8
+# (attention at index 3, MoE at the odd ones, ~13.3B) fits on one card.  Its f32
+# comparison takes the block's first 4 layers (2 MoE layers, ~28 GB in f32).
+JAMBA_LAYERS, JAMBA_F32_LAYERS = 8, 4
+# The last-position logits with the kernels against the plain versions, relative to
+# the largest plain logit; written before the first run of these paths on the card.
+# f32: the same math summed in another order (K4's SIMT kernel, K2), 1e-3 as for
+# mamba2.  bf16 through whisper's 120 sublayers (24 encoder layers of 2, 24 decoder
+# layers of 3) and vision's 88: each may round an activation one bf16 ulp (2^-8)
+# differently, and K4 rounds P to bf16 where the plain version does not; as a random
+# walk sqrt(120) ulps is ~4.3% of the logits' scale, so 10%.  The Jamba block in bf16:
+# its 7 Mamba layers amplify a one-ulp flip as mamba2's do, and a flip can change a
+# top-2 routing choice, so 50% as for mamba2; only f32 sees a wrong term there.
+XA_F32_REL_BOUND = 1e-3
+XA_BF16_REL_BOUND = 0.1
+JAMBA_BF16_REL_BOUND = 0.5
+
+# (B, H, KVH, Sq, Skv, D): K4's non-causal calls on this slice's paths, at the
+# serving batch (phase 21): whisper's encoder self-attention and cross-attention at
+# head_dim 64, and vision's GQA cross-attention over 1600 image tokens
+XATTN_CASES = {
+    "whisper encoder": (4, 16, 16, 1500, 1500, 64),
+    "whisper cross": (4, 16, 16, 416, 1500, 64),
+    "vision cross": (4, 32, 8, 1024, 1600, 128),
+}
+# (Bt, S, H, P, G, N): K5 at the Jamba block's serving shape (128 SSM heads)
+SSD_JAMBA = (4, 1024, 128, 64, 1, 128)
 
 # (Bt, S, H, P, G, N): the shapes of the SSD kernel tests, a ragged S with G > 1, and
 # the mamba2-reduced shape
@@ -595,7 +648,214 @@ def myia_phases(torch, dev, records, card: str) -> tuple[dict, dict]:
     return counts, fused_counts
 
 
+def widen_in_place(tree):
+    """Every tensor of a nested dict/list widened to f32, each dropped as it goes, so
+    that the bf16 and f32 copies of a large model never exist whole at once."""
+    items = tree.items() if isinstance(tree, dict) else enumerate(tree)
+    for key, val in list(items):
+        tree[key] = widen_in_place(val) if isinstance(val, (dict, list)) else val.float()
+    return tree
+
+
+def xattn_moe_phases(torch, dev, card: str) -> dict:
+    """Phases 22-25: the MoE, cross-attention and encoder-decoder archs, reduced in f32
+    (card against CPU), then whisper-medium, llama-3.2-vision-11b and one Jamba block
+    served at full width.  Returns each served path's launch counts over its prefill
+    and decode."""
+    from repro_torch.configs import ENC_FRAMES, get_config
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch.serve import make_requests, serve_decode, serve_prefill
+    from repro_torch.models import init_params
+    from repro_torch.models import layers as L
+    from repro_torch.tree import leaves, map_leaves
+
+    cpu = torch.device("cpu")
+    archs = ["grok-1-314b", "jamba-v0.1-52b", "kimi-k2-1t-a32b", "llama-3.2-vision-11b",
+             "whisper-medium"]
+
+    # -- 22. the five archs reduced, f32: card with kernels vs CPU plain ---------------
+    for arch in archs:
+        small = get_config(arch, reduced=True)
+        sp = init_params(small, seed=0, device="cpu")
+        sp_card = map_leaves(lambda t: t.to(dev), sp)
+        prompts, extras = make_requests(small, 2, 12, cpu)
+        lc, cc = serve_prefill(small, sp, prompts, 16, batch_extras=extras)
+        lg, cg = serve_prefill(small, sp_card, prompts.to(dev), 16,
+                               batch_extras={k: v.to(dev) for k, v in extras.items()})
+        torch.testing.assert_close(lg.cpu(), lc, rtol=3e-4, atol=3e-4)
+        for a, b in zip(cg, cc, strict=True):
+            assert sorted(a) == sorted(b), arch
+            for part in b:
+                for key in b[part]:
+                    torch.testing.assert_close(a[part][key].cpu(), b[part][key], rtol=3e-4,
+                                               atol=3e-4)
+        toks, kc = serve_decode(small, sp, lc, cc, 12, 4, keep_logits=True)
+        _, kg = serve_decode(small, sp_card, lg, cg, 12, 4, forced=toks.to(dev),
+                             keep_logits=True)
+        for a, b in zip(kg, kc):
+            torch.testing.assert_close(a.cpu(), b, rtol=5e-4, atol=5e-4)
+    say(f"[xattn-small] {', '.join(archs)} reduced, f32 prefill (logits, self and cross "
+        "caches, conv and SSM state) + 4 decode steps: card kernels agree with CPU plain "
+        "within 3e-4 / 5e-4")
+
+    def routes_of(fn):
+        """fn's result and the expert indices (G, Sg, K) of every MoE layer it routes."""
+        seen, route = [], L.moe_route
+
+        def recording(cfg_, p_, xg):
+            out = route(cfg_, p_, xg)
+            seen.append(out[2])
+            return out
+
+        L.moe_route = recording
+        try:
+            return fn(), seen
+        finally:
+            L.moe_route = route
+
+    def agreement(a, b) -> float:
+        """The share of (token, k) routing choices that two runs make alike."""
+        same = sum(int((x == y).sum()) for x, y in zip(a, b, strict=True))
+        return same / sum(x.numel() for x in a)
+
+    def compare(label, got, want, rel_bound, extra=""):
+        diff = (got - want).abs().max().item()
+        scale = want.abs().max().item()
+        tok = got.argmax(-1)
+        agree = int((tok == want.argmax(-1)).sum())
+        gap = (want.max(-1).values - want.gather(1, tok[:, None])[:, 0]).max().item()
+        say(f"[{label}] kernels vs plain, last-position logits: max_abs_diff {diff:.4e} = "
+            f"{diff / scale:.3e} x max|logit| {scale:.4e} (bound {rel_bound}){extra}; first "
+            f"greedy tokens agree on {agree}/{got.shape[0]} rows, largest plain-logit gap of "
+            f"the kernel's pick {gap:.4e}")
+        assert bool(torch.isfinite(got).all()) and bool(torch.isfinite(want).all()), label
+        assert diff <= rel_bound * scale, (label, diff, scale)
+        assert gap <= rel_bound * scale, (label, gap, scale)
+
+    def serve_path(tag, cfg, prompt_len, want_prefill, want_step, bf16_bound, *,
+                   f32_layers=None, note=""):
+        """Serve ``cfg`` at full width in bf16 through repro_torch.launch.serve, with the
+        launches of the prefill and of every decode step asserted exactly; then the
+        same prefill with the plain versions, in bf16 and with the weights widened to
+        f32 (on the first ``f32_layers`` layers when given).  Returns the launches of
+        the prefill and the decode steps together."""
+        t0 = time.monotonic()
+        params = init_params(cfg, seed=0, device=dev)
+        n_params = sum(t.numel() for t in leaves(params))
+        prompts, extras = make_requests(cfg, XA_B, prompt_len, dev, enc_frames=ENC_FRAMES)
+        torch.cuda.synchronize()
+        t_init = time.monotonic() - t0
+        max_len = prompt_len + XA_GEN
+        say(f"[{tag}] {cfg.name}: {cfg.n_layers} layers"
+            f"{f' + {cfg.n_enc_layers} encoder layers' if cfg.enc_dec else ''}, d_model "
+            f"{cfg.d_model}, {cfg.n_heads} heads on {cfg.n_kv_heads} of {cfg.hd}, d_ff "
+            f"{cfg.d_ff}, vocab {cfg.vocab}; {n_params / 1e9:.3f} B parameters in bf16, random "
+            f"from seed 0 ({t_init:.1f}s to make); batch {XA_B}, prompt {prompt_len}, "
+            f"{XA_GEN} greedy tokens; extras "
+            f"{ {k: tuple(v.shape) for k, v in extras.items()} }{note}")
+        wl, wc = serve_prefill(cfg, params, prompts, max_len, batch_extras=extras)  # warm-up
+        serve_decode(cfg, params, wl, wc, prompt_len, 2)
+        del wl, wc
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t0 = time.monotonic()
+        logits, caches = serve_prefill(cfg, params, prompts, max_len, batch_extras=extras)
+        torch.cuda.synchronize()
+        t_prefill = time.monotonic() - t0
+        prefill_counts = dict(LAUNCHES)
+        reset_launches()
+        step_counts, step_logits, fed = [], [], []
+        lg = logits
+        t1 = time.monotonic()
+        for i in range(XA_GEN):  # serve_decode one step at a time, to count each step
+            before = dict(LAUNCHES)
+            tok, kept = serve_decode(cfg, params, lg, caches, prompt_len + i, 1,
+                                     keep_logits=True)
+            lg = kept[0]
+            fed.append(tok)
+            step_logits.append(lg)
+            step_counts.append({n: LAUNCHES[n] - before[n] for n in LAUNCHES})
+        torch.cuda.synchronize()
+        t_decode = time.monotonic() - t1
+        decode_counts = dict(LAUNCHES)
+        tokens = torch.cat(fed, dim=1)
+        say(f"[{tag}] {card}: prefill {t_prefill:.4f}s ({XA_B * prompt_len / t_prefill:.0f} "
+            f"tok/s); decode {XA_GEN} steps in {t_decode:.4f}s ({XA_B * XA_GEN / t_decode:.1f} "
+            f"tok/s, {t_decode / XA_GEN * 1e3:.2f} ms/step); peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        say(f"[{tag}] launches: prefill {prefill_counts}; decode {decode_counts} over "
+            f"{XA_GEN} steps")
+        none = {n: 0 for n in LAUNCHES}
+        assert prefill_counts == {**none, **want_prefill}, (tag, prefill_counts)
+        assert all(c == {**none, **want_step} for c in step_counts), (tag, step_counts)
+        assert logits.shape == (XA_B, cfg.vocab) and tokens.shape == (XA_B, XA_GEN)
+        assert bool(torch.isfinite(logits).all()), "non-finite prefill logits"
+        assert all(bool(torch.isfinite(x).all()) for x in step_logits), "non-finite decode"
+        say(f"[{tag}] first tokens: {tokens[:, :8].tolist()}")
+        del caches, step_logits
+
+        def prefill(cfg_, impl, extras_=extras):
+            return serve_prefill(cfg_, params, prompts, max_len, batch_extras=extras_,
+                                 impl=impl)[0]
+
+        route = ""
+        if cfg.num_experts:
+            (_, rk), (logits_ref, rr) = routes_of(lambda: prefill(cfg, None)), \
+                routes_of(lambda: prefill(cfg, "ref"))
+            route = f"; (token, k) routing choices alike in {agreement(rk, rr):.4%}"
+        else:
+            logits_ref = prefill(cfg, "ref")
+        compare(f"{tag} bf16", logits, logits_ref, bf16_bound, route)
+        del logits, logits_ref
+        cfg32 = dataclasses.replace(cfg, param_dtype="float32", compute_dtype="float32")
+        if f32_layers is not None:
+            cfg32 = dataclasses.replace(cfg32, n_layers=f32_layers)
+            del params["layers"][f32_layers:]
+        widen_in_place(params)
+        torch.cuda.empty_cache()
+        extras32 = {k: v.float() for k, v in extras.items()}
+        route = ""
+        if cfg.num_experts:
+            (lk, rk), (lr, rr) = routes_of(lambda: prefill(cfg32, None, extras32)), \
+                routes_of(lambda: prefill(cfg32, "ref", extras32))
+            route = f"; (token, k) routing choices alike in {agreement(rk, rr):.4%}"
+        else:
+            lk, lr = prefill(cfg32, None, extras32), prefill(cfg32, "ref", extras32)
+        compare(f"{tag} f32", lk, lr, XA_F32_REL_BOUND,
+                f" (the same weights widened to f32"
+                f"{f', the first {f32_layers} layers' if f32_layers else ''}){route}")
+        del params, lk, lr
+        torch.cuda.empty_cache()
+        return {n: prefill_counts[n] + decode_counts[n] for n in LAUNCHES}
+
+    counts = {}
+    # -- 23. whisper-medium: 24 encoder + 24 decoder layers, cross-attention on each ----
+    # K4: 24 encoder (non-causal), 24 decoder (causal), 24 cross; K2: 2 x 24 + 1 in the
+    # encoder, 3 x 24 + 1 in the decoder, and 3 x 24 + 1 a decode step
+    counts["serve_whisper"] = serve_path(
+        "serve-whisper", get_config("whisper-medium"), WHISPER_PROMPT,
+        {"flash_attention_fwd": 72, "rmsnorm_fwd": 122}, {"rmsnorm_fwd": 73},
+        XA_BF16_REL_BOUND, note=f"; {ENC_FRAMES} encoder frames (30 s at 50 Hz)")
+    # -- 24. llama-3.2-vision-11b: 40 layers, cross-attention on 8 --------------------
+    counts["serve_vision"] = serve_path(
+        "serve-vision", get_config("llama-3.2-vision-11b"), XA_PROMPT,
+        {"flash_attention_fwd": 48, "rmsnorm_fwd": 89}, {"rmsnorm_fwd": 89},
+        XA_BF16_REL_BOUND)
+    # -- 25. one Jamba block: 7 Mamba-2 layers, attention at index 3, MoE on the odd -----
+    from repro_torch.kernels.ssd_scan import LAUNCHES_PER_CALL as SSD_LAUNCHES
+    jamba = dataclasses.replace(get_config("jamba-v0.1-52b"), n_layers=JAMBA_LAYERS)
+    counts["serve_jamba"] = serve_path(
+        "serve-jamba", jamba, XA_PROMPT,
+        {"flash_attention_fwd": 1, "ssd_scan_fwd": 7 * SSD_LAUNCHES, "rmsnorm_fwd": 24},
+        {"rmsnorm_fwd": 24}, JAMBA_BF16_REL_BOUND, f32_layers=JAMBA_F32_LAYERS,
+        note=f"; depth cut to {JAMBA_LAYERS} of 32 layers, one whole Jamba block (52B in "
+             f"bf16, ~104 GB, does not fit on one card)")
+    return counts
+
+
 def main() -> int:
+    t_start = time.monotonic()
     import torch
 
     if not torch.cuda.is_available():
@@ -1437,6 +1697,63 @@ def main() -> int:
     # -- 17-20. K1 and the Myia-compiled train step -------------------------------
     myia_counts, myia_fused = myia_phases(torch, dev, records, f"{name} ({smi})")
 
+    # -- 21. K4's non-causal modes and K5 at 128 heads, at this slice's shapes ------
+    def fa_noncausal_case(label, q, k, v):
+        """K4 non-causal against the plain version and the tensor-core twin (o at the
+        bf16 tolerance, lse at the f32 one), timed beside SDPA: a row of the record."""
+        B_, H_, Sq, D_ = q.shape
+        Skv = k.shape[2]
+        o, lse = flash_attention_fwd(q, k, v, return_lse=True)
+        want = ref.flash_attention_ref(q, k, v)
+        twin_o, twin_lse = ref.flash_attention_fwd_tc_twin(q, k, v)
+        chunked_lse = ref.flash_attention_fwd_lse_chunked(q, k, v)[1]
+        err, twin_err = check(o, want, "bfloat16"), check(o, twin_o, "bfloat16")
+        for want_lse in (chunked_lse, twin_lse):
+            torch.testing.assert_close(lse, want_lse, **TOL["float32"])
+        lse_err = max((lse - chunked_lse).abs().max().item(),
+                      (lse - twin_lse).abs().max().item())
+        assert torch.equal(flash_attention_fwd(q, k, v), o)  # without lse, the same o
+        del twin_o, twin_lse, chunked_lse
+        lib = lambda: F.scaled_dot_product_attention(q, k, v, enable_gqa=True)
+        lib_err = (lib().float() - want.float()).abs().max().item()
+        del want
+        flops = 4 * B_ * H_ * D_ * Sq * Skv
+        bound_ms, bound_by = bound((2 * q.numel() + k.numel() + v.numel()) * q.element_size(),
+                                   flops, BF16_TENSOR_FLOPS)
+        kern = readings(torch, lambda: flash_attention_fwd(q, k, v))
+        lib_r = readings(torch, lib)
+        rec = record("flash_attention_fwd", "cuda", "src/repro_torch/csrc/flash_attention.cu",
+                     "src/repro/kernels/flash_attention.py:111", max(err, lse_err), kern,
+                     time_ms(torch, lambda: ref.flash_attention_ref(q, k, v), reps=10),
+                     bound_ms, bound_by, lib_r)
+        say(f"[xattn-kernels] flash_attention_fwd bf16 ({label}) q{(B_, H_, Sq, D_)} "
+            f"kv{(k.shape[1], Skv)} non-causal: max_abs_err vs plain {err:.3e}, vs tensor-core "
+            f"twin {twin_err:.3e}, lse {lse_err:.3e}; {fmt(kern)} plain_ms "
+            f"{rec['plain_ms']:.4f}; SDPA {fmt(lib_r)} (max_abs_err {lib_err:.3e}); bound_ms "
+            f"{bound_ms:.6f} ({bound_by}, {flops / 1e9:.3f} GFLOP) achieved "
+            f"{flops / rec['ms'] / 1e9:.2f} TFLOP/s, {bound_ms / rec['ms']:.1%} of the bound; "
+            f"{rec['ms'] / rec['library_ms']:.2f}x SDPA's device time")
+        return {"shape": label, **{key: rec[key] for key in (
+            "max_abs_err", "ms", "call_ms", "host_us", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "library_call_ms", "library_host_us")}}
+
+    xattn_rows = []
+    for label, (B_, H_, KVH_, Sq, Skv, D_) in XATTN_CASES.items():
+        qkv = (randn(B_, H_, Sq, D_, dtype=torch.bfloat16),
+               randn(B_, KVH_, Skv, D_, dtype=torch.bfloat16),
+               randn(B_, KVH_, Skv, D_, dtype=torch.bfloat16))
+        xattn_rows.append(fa_noncausal_case(label, *qkv))
+        del qkv
+    records["flash_attention_fwd"]["at_shapes"] = xattn_rows
+    jrec = ssd_case(*ssd_inputs(*SSD_JAMBA, torch.bfloat16), timed=True)
+    records["ssd_scan_fwd"]["at_shapes"] = [{"shape": "Jamba block, 128 SSM heads", **{
+        key: jrec[key] for key in ("max_abs_err", "ms", "call_ms", "host_us", "plain_ms",
+                                   "bound_ms", "bound_by", "library_ms")}}]
+    torch.cuda.empty_cache()
+
+    # -- 22-25. the MoE, cross-attention and encoder-decoder archs ------------------
+    xattn_counts = xattn_moe_phases(torch, dev, f"{name} ({smi})")
+
     # -- records ---------------------------------------------------------------
     # times at the training shapes (K2, K3, K4) and the mamba2 serving shape (K5);
     # launches over the main path of each kernel's own slice (the 20 timed training
@@ -1456,9 +1773,14 @@ def main() -> int:
          "launches_by_path": {"serve": launches_on(serve_counts, {}, rec),
                               "train": launches_on(train_counts, {}, rec),
                               "serve_mamba2": launches_on(mamba_counts, {}, rec),
-                              "train_myia": launches_on(myia_counts, myia_fused, rec)}}
+                              "train_myia": launches_on(myia_counts, myia_fused, rec),
+                              **{path: launches_on(c, {}, rec)
+                                 for path, c in xattn_counts.items()}},
+         **({"at_shapes": rec["at_shapes"]} if "at_shapes" in rec else {})}
         for rec in records.values()
     ]
+    say(f"[done] every phase passed in {time.monotonic() - t_start:.1f}s, the kernels' build "
+        "included")
     print(json.dumps({"kernels": kernels_line}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

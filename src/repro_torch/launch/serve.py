@@ -3,12 +3,16 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-1b \\
         --batch 4 --prompt-len 1024 --gen 32
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-370m --prompt-len 1024
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-medium \\
+        --prompt-len 416 --enc-frames 1500
 
 The port of ``repro.launch.serve --compiler jax``: random weights from a seed,
-a batch of random prompts (the same token ids as the reference driver's), one
+a batch of random prompts (the same token ids as ``repro.launch.serve``'s) and the
+modality stubs an encoder-decoder or VLM model takes (the same draws), one
 prefill, then greedy decode against the caches (KV for attention layers, conv
-window and SSM state for Mamba layers).  ``--device cpu`` runs the
-plain PyTorch versions of the kernels on the CPU; the default is ``cuda``.
+window and SSM state for Mamba layers, projected K/V for cross-attention).
+``--device cpu`` runs the plain PyTorch versions of the kernels on the CPU; the
+default is ``cuda``.
 The Myia-compiled serving path (``--compiler myia``) waits for the Myia slices.
 """
 
@@ -29,15 +33,38 @@ def make_prompts(
     cfg: ModelConfig, batch: int, prompt_len: int, device: torch.device, seed: int = 0
 ) -> torch.Tensor:
     """(batch, prompt_len) int32 token ids from numpy's generator, as the reference draws them."""
+    return make_requests(cfg, batch, prompt_len, device, seed=seed)[0]
+
+
+def make_requests(
+    cfg: ModelConfig, batch: int, prompt_len: int, device: torch.device, *,
+    enc_frames: int = 64, seed: int = 0,
+) -> tuple[torch.Tensor, dict]:
+    """(prompts, batch extras): the prompts of :func:`make_prompts`, then the modality
+    stubs from the same generator right after them, as ``repro.launch.serve`` draws
+    them, in ``cfg.cdtype``: ``enc_frames`` (batch, enc_frames, D) for an
+    encoder-decoder model (``repro.launch.serve`` takes 64; Whisper's encoder
+    output is ``configs.ENC_FRAMES``), ``image_embeds`` (batch, num_image_tokens, D)
+    for a VLM."""
     rng = np.random.default_rng(seed)
-    ids = rng.integers(0, cfg.vocab, (batch, prompt_len))
-    return torch.as_tensor(ids, dtype=torch.int32).to(device)
+    prompts = torch.as_tensor(rng.integers(0, cfg.vocab, (batch, prompt_len)),
+                              dtype=torch.int32).to(device)
+    shapes = {}
+    if cfg.enc_dec:
+        shapes["enc_frames"] = (batch, enc_frames, cfg.d_model)
+    if cfg.cross_attn_period and not cfg.enc_dec:
+        shapes["image_embeds"] = (batch, cfg.num_image_tokens, cfg.d_model)
+    extras = {name: torch.from_numpy(rng.standard_normal(shape)).to(device, cfg.cdtype)
+              for name, shape in shapes.items()}
+    return prompts, extras
 
 
 @torch.inference_mode()
-def serve_prefill(cfg: ModelConfig, params, prompts: torch.Tensor, max_len: int, *, impl=None):
-    """Prefill the prompts: (logits of the last position (B, V) f32, caches)."""
-    return prefill(cfg, params, prompts, max_len, impl=impl)
+def serve_prefill(cfg: ModelConfig, params, prompts: torch.Tensor, max_len: int, *,
+                  batch_extras: dict | None = None, impl=None):
+    """Prefill the prompts, with the modality stubs of :func:`make_requests`: (logits
+    of the last position (B, V) f32, caches)."""
+    return prefill(cfg, params, prompts, max_len, batch_extras=batch_extras, impl=impl)
 
 
 @torch.inference_mode()
@@ -83,6 +110,8 @@ def main(argv=None) -> int:
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--gen", type=int, default=32)
+    ap.add_argument("--enc-frames", type=int, default=64,
+                    help="encoder frames of an encoder-decoder model's stub input")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = ap.parse_args(argv)
 
@@ -90,11 +119,12 @@ def main(argv=None) -> int:
     cfg = get_config(args.arch, reduced=args.reduced)
     params = init_params(cfg, seed=0, device=device)
     max_len = args.prompt_len + args.gen
-    prompts = make_prompts(cfg, args.batch, args.prompt_len, device)
+    prompts, extras = make_requests(cfg, args.batch, args.prompt_len, device,
+                                    enc_frames=args.enc_frames)
 
     _sync(device)
     t0 = time.monotonic()
-    logits, caches = serve_prefill(cfg, params, prompts, max_len)
+    logits, caches = serve_prefill(cfg, params, prompts, max_len, batch_extras=extras)
     _sync(device)
     t_prefill = time.monotonic() - t0
 

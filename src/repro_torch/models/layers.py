@@ -1,9 +1,9 @@
-"""Layer building blocks: RMSNorm, GQA attention (global / sliding-window), GLU MLP,
-the Mamba-2 mixer (SSD).
+"""Layer building blocks: RMSNorm, GQA attention (self / cross, global /
+sliding-window), GLU MLP, token-choice top-k MoE, the Mamba-2 mixer (SSD).
 
-The port of ``repro.models.layers`` without MoE and cross-attention, which wait for
-a later slice.  Every block is a pair of functions ``*_init(cfg, gen) -> params``
-and ``*_apply(cfg, params, …) -> y``, plus a cached decode variant for the mixers.
+The port of ``repro.models.layers``.  Every block is a pair of functions
+``*_init(cfg, gen) -> params`` and ``*_apply(cfg, params, …) -> y``, plus a cached
+decode variant for the mixers and cross-attention.
 Parameters keep the reference's layouts: ``wq``/``wk``/``wv`` are ``(D, heads,
 hd)`` and ``wo`` is ``(H, hd, D)``; q/k/v are ``(B, heads, S, hd)``; the Mamba
 mixer's ``in_proj`` is ``(D, 2·DI + 2·N + NH)`` (``[z, x, B, C, dt]``) and
@@ -39,7 +39,7 @@ def norm_apply(
 
 
 # ===========================================================================
-# Attention (global / sliding-window, GQA)
+# Attention (self / cross, global / sliding-window, GQA)
 # ===========================================================================
 
 
@@ -80,14 +80,21 @@ def attn_apply(
     positions: torch.Tensor,
     *,
     kind: str = "global",
+    causal: bool = True,
+    cross_states: torch.Tensor | None = None,
     impl: str | None = None,
 ) -> torch.Tensor:
-    """Full-sequence causal self-attention (prefill).  x: (B, S, D)."""
+    """Full-sequence attention (training / prefill).  x: (B, S, D).
+
+    With ``cross_states`` (B, S_kv, D), K and V come from the states, there is no
+    RoPE and the attention is non-causal."""
+    if cross_states is not None:
+        return cross_attn_apply(cfg, p, x, cross_cache_init(cfg, p, cross_states), impl=impl)
     q, k, v = _qkv(cfg, p, x)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     window = cfg.local_window if kind == "local" else None
-    o = kernels.flash_attention(q, k, v, causal=True, window=window, impl=impl)
+    o = kernels.flash_attention(q, k, v, causal=causal, window=window, impl=impl)
     return _out(cfg, p, o)
 
 
@@ -144,6 +151,34 @@ def attn_decode(
     return _out(cfg, p, o), cache
 
 
+def cross_cache_init(cfg: ModelConfig, p: Params, states: torch.Tensor) -> Params:
+    """Cross-attention K/V projected once from the encoder states or image embeddings
+    (B, S_kv, D): each (B, KVH, S_kv, hd)."""
+    return {"k": _proj(cfg, states, p["wk"]), "v": _proj(cfg, states, p["wv"])}
+
+
+def cross_attn_apply(
+    cfg: ModelConfig, p: Params, x: torch.Tensor, kv: Params, *, impl: str | None = None
+) -> torch.Tensor:
+    """Non-causal attention of x (B, S, D) over projected K/V (``cross_cache_init``)."""
+    q = _proj(cfg, x, p["wq"])
+    return _out(cfg, p, kernels.flash_attention(q, kv["k"], kv["v"], causal=False, impl=impl))
+
+
+def cross_attn_decode(cfg: ModelConfig, p: Params, x_t: torch.Tensor, cache: Params):
+    """One token's cross-attention over the projected K/V: plain f32 math on a
+    grouped-head view, with no mask and no softcap, as in the reference."""
+    B = x_t.shape[0]
+    group = cfg.n_heads // cfg.n_kv_heads
+    q = _proj(cfg, x_t, p["wq"])
+    qg = q.to(torch.float32).reshape(B, cfg.n_kv_heads, group, 1, cfg.hd)
+    s = torch.einsum("bkgqd,bksd->bkgqs", qg, cache["k"].to(torch.float32)) * (cfg.hd**-0.5)
+    pattn = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgqs,bksd->bkgqd", pattn, cache["v"].to(torch.float32))
+    o = o.reshape(B, cfg.n_heads, 1, cfg.hd).to(cfg.cdtype)
+    return _out(cfg, p, o)
+
+
 # ===========================================================================
 # Dense GLU MLP
 # ===========================================================================
@@ -168,6 +203,106 @@ def mlp_apply(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
     h = x @ p["wi"].to(cfg.cdtype)
     g = x @ p["wg"].to(cfg.cdtype)
     return (h * _act(cfg, g)) @ p["wo"].to(cfg.cdtype)
+
+
+# ===========================================================================
+# Token-choice top-k MoE (index-based dispatch and combine)
+# ===========================================================================
+
+
+def moe_init(cfg: ModelConfig, gen: torch.Generator) -> Params:
+    """The router in f32 whatever ``pdtype`` is; experts ``wi``/``wg`` (E, D, F) and
+    ``wo`` (E, F, D); Kimi's always-on ``shared`` GLU MLP."""
+    D, E, Fd = cfg.d_model, cfg.num_experts, cfg.moe_d_ff or cfg.d_ff
+    dt = cfg.pdtype
+    p: Params = {
+        "router": dense_init(gen, (D, E), torch.float32),
+        "wi": dense_init(gen, (E, D, Fd), dt, fan_in=D),
+        "wg": dense_init(gen, (E, D, Fd), dt, fan_in=D),
+        "wo": dense_init(gen, (E, Fd, D), dt, fan_in=Fd),
+    }
+    if cfg.shared_experts:
+        p["shared"] = mlp_init(cfg, gen, d_ff=(cfg.moe_d_ff or cfg.d_ff) * cfg.shared_experts)
+    return p
+
+
+def moe_capacity(cfg: ModelConfig, B: int, S: int, full_capacity: bool) -> tuple[int, int, int]:
+    """(groups G, tokens a group Sg, slots an expert C).  Groups are batch rows; in
+    decode (``full_capacity``) one group whose capacity takes a factor of at least 2."""
+    E, K = cfg.num_experts, cfg.top_k
+    if full_capacity:
+        G, Sg = 1, B * S
+        C = min(Sg, max(1, int(Sg * K / E * max(cfg.capacity_factor, 2.0))))
+    else:
+        G, Sg = B, S
+        C = min(Sg, max(1, int(Sg * K / E * cfg.capacity_factor)))
+    return G, Sg, C
+
+
+def moe_route(cfg: ModelConfig, p: Params, xg: torch.Tensor):
+    """The router in f32: (probs (G, Sg, E), gate values (G, Sg, K) renormalised over
+    the K choices, expert indices (G, Sg, K)).  A stable descending sort breaks ties
+    by the lower expert index, as ``jax.lax.top_k`` does."""
+    logits = xg.to(torch.float32) @ p["router"]
+    probs = torch.softmax(logits, dim=-1)
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gate_vals, gate_idx = vals[..., :cfg.top_k], idx[..., :cfg.top_k]
+    return probs, gate_vals / gate_vals.sum(-1, keepdim=True), gate_idx
+
+
+def moe_apply(
+    cfg: ModelConfig, p: Params, x: torch.Tensor, *, full_capacity: bool = False
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Returns (y, aux loss).  Token-choice top-K routing with per-group capacity and
+    index-based dispatch, as the reference's:
+
+        route:    top-K(softmax(x·router))                           (G, Sg, K)
+        dispatch: each expert's C slots hold token indices; gather  (G, E, C, D)
+        expert GLU on the gathered slots
+        combine:  scatter-add of the gated expert outputs back to the tokens
+
+    Assignments take slots in token-major, then k, order; those past an expert's C
+    slots are dropped (the residual passes the token through)."""
+    B, S, D = x.shape
+    E, K = cfg.num_experts, cfg.top_k
+    G, Sg, C = moe_capacity(cfg, B, S, full_capacity)
+    xg = x.reshape(G, Sg, D)
+    probs, gate_vals, gate_idx = moe_route(cfg, p, xg)
+
+    # load-balancing auxiliary loss (Switch/GShard)
+    me = probs.mean(dim=(0, 1))
+    ce = F.one_hot(gate_idx, E).to(torch.float32).sum(2).mean(dim=(0, 1))
+    aux = E * torch.sum(me * ce)
+
+    # each assignment's position in its expert's slots; the dropped ones go to an
+    # overflow slot E·C, cut off below
+    e_flat = gate_idx.reshape(G, Sg * K)
+    sel = F.one_hot(e_flat, E)
+    pos = (sel * (sel.cumsum(1) - 1)).sum(-1)
+    slot = torch.where(pos < C, e_flat * C + pos, E * C)
+    dev = x.device
+    tok = torch.arange(Sg, device=dev).repeat_interleave(K).expand(G, -1)
+    slot_tok = torch.full((G, E * C + 1), Sg, dtype=torch.long, device=dev)
+    slot_tok = slot_tok.scatter(1, slot, tok)[:, :E * C]  # Sg: an empty slot
+    slot_gate = torch.zeros((G, E * C + 1), dtype=torch.float32, device=dev)
+    slot_gate = slot_gate.scatter(1, slot, gate_vals.reshape(G, Sg * K))[:, :E * C]
+
+    xs_pad = torch.cat([xg, xg.new_zeros(G, 1, D)], dim=1)
+    xe = torch.gather(xs_pad, 1, slot_tok[..., None].expand(-1, -1, D))  # (G, E·C, D)
+    xe = xe.reshape(G, E, C, D).transpose(0, 1).reshape(E, G * C, D)
+    h = torch.bmm(xe, p["wi"].to(cfg.cdtype))
+    g = torch.bmm(xe, p["wg"].to(cfg.cdtype))
+    ye = torch.bmm(h * _act(cfg, g), p["wo"].to(cfg.cdtype))
+    ye = ye.reshape(E, G, C, D).transpose(0, 1).reshape(G, E * C, D)
+
+    w = ye.to(torch.float32) * slot_gate[..., None]
+    rows = (slot_tok + torch.arange(G, device=dev)[:, None] * (Sg + 1)).reshape(-1)
+    y = torch.zeros((G * (Sg + 1), D), dtype=torch.float32, device=dev)
+    y = y.index_add(0, rows, w.reshape(-1, D)).reshape(G, Sg + 1, D)[:, :Sg]
+    y = y.reshape(B, S, D).to(cfg.cdtype)
+    if cfg.shared_experts:
+        y = y + mlp_apply(cfg, p["shared"], x)
+    return y, aux
 
 
 # ===========================================================================

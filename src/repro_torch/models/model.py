@@ -1,11 +1,13 @@
-"""Model assembly: embedding → layer stack → head, for the dense attention models,
-the Mamba-2 models and hybrids of the two.
+"""Model assembly: embedding → layer stack → head, for every architecture family of
+the reference: dense attention, Mamba-2 and hybrid stacks, MoE, the encoder-decoder
+(Whisper) and cross-attention (VLM) models.
 
 Four execution paths share one parameter dictionary:
 
 * ``forward``      — full-sequence forward (logits).
 * ``loss_fn``      — the training loss on a batch, differentiable by autograd.
-* ``prefill``      — full-sequence forward that also fills the KV caches.
+* ``prefill``      — full-sequence forward that also fills the caches (KV, conv
+                     window and SSM state, cross-attention K/V).
 * ``decode_step``  — single-token step against the caches.
 
 The reference scans over stacked segments of layers (``lax.scan``); here the
@@ -14,11 +16,13 @@ reference rematerialises a scanned segment (``jax.checkpoint``), the port
 checkpoints the same layers (:func:`remat_layers`).
 :func:`repro_torch.models.convert.params_from_jax` unstacks the reference's
 segments into that list.  Parameters: ``{"embed": (V, D), "layers": [...],
-"final_norm": (D,)}`` plus ``"lm_head": (D, V)`` when embeddings are not tied.
+"final_norm": (D,)}``, plus ``"lm_head": (D, V)`` when embeddings are not tied and
+``"encoder": {"layers": [...], "final_norm"}`` for an encoder-decoder model.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 from typing import Any
 
@@ -33,17 +37,18 @@ from .common import LayerSpec, ModelConfig, apply_rope
 
 Params = dict[str, Any]
 
-_AUX_WEIGHT = 0.01  # MoE load-balance loss weight (no MoE layer is ported yet)
+_AUX_WEIGHT = 0.01  # MoE load-balance loss weight
 
 
 def check_supported(spec: LayerSpec) -> None:
-    """Attention or Mamba mixers, with or without the dense FFN; no MoE, no
-    cross-attention yet."""
-    if spec.mixer not in ("attn", "mamba") or spec.moe or spec.cross_attn:
-        raise NotImplementedError(
-            f"layer {spec.tag!r} is not ported yet (ROADMAP.md §A: MoE, cross-attention "
-            "and encoder-decoder layers)"
-        )
+    """Every layer kind the reference builds: an attention or Mamba mixer, with or
+    without the dense or MoE FFN, with or without cross-attention."""
+    if spec.mixer not in ("attn", "mamba"):
+        raise ValueError(f"layer {spec.tag!r}: unknown mixer {spec.mixer!r}")
+
+
+def _zero(x: torch.Tensor) -> torch.Tensor:
+    return torch.zeros((), dtype=torch.float32, device=x.device)
 
 
 # ===========================================================================
@@ -59,16 +64,24 @@ def layer_init(
     p["mixer"] = L.attn_init(cfg, gen) if spec.mixer == "attn" else L.mamba_init(cfg, gen)
     if spec.ffn:
         p["norm2"] = L.norm_init(cfg, device)
-        p["ffn"] = L.mlp_init(cfg, gen)
+        p["ffn"] = L.moe_init(cfg, gen) if spec.moe else L.mlp_init(cfg, gen)
+    if spec.cross_attn:
+        p["norm_x"] = L.norm_init(cfg, device)
+        p["cross"] = L.attn_init(cfg, gen)
     return p
 
 
-def _ffn(cfg: ModelConfig, spec: LayerSpec, p: Params, x: torch.Tensor, impl) -> torch.Tensor:
-    """The channel-mixing sublayer with its residual, or x for a mixer-only layer."""
+def _ffn(cfg: ModelConfig, spec: LayerSpec, p: Params, x: torch.Tensor, impl, *,
+         full_capacity: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
+    """The channel-mixing sublayer with its residual, and the MoE aux loss (zero for
+    the dense MLP and a mixer-only layer)."""
     if not spec.ffn:
-        return x
+        return x, _zero(x)
     h2 = L.norm_apply(cfg, p["norm2"], x, impl=impl)
-    return x + L.mlp_apply(cfg, p["ffn"], h2)
+    if spec.moe:
+        y2, aux = L.moe_apply(cfg, p["ffn"], h2, full_capacity=full_capacity)
+        return x + y2, aux
+    return x + L.mlp_apply(cfg, p["ffn"], h2), _zero(x)
 
 
 def layer_apply(
@@ -78,22 +91,39 @@ def layer_apply(
     x: torch.Tensor,
     positions: torch.Tensor,
     *,
+    causal: bool = True,
+    cross_states: torch.Tensor | None = None,
     impl: str | None = None,
-) -> torch.Tensor:
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """One layer: (x, MoE aux loss)."""
     h = L.norm_apply(cfg, p["norm1"], x, impl=impl)
     if spec.mixer == "attn":
-        y = L.attn_apply(cfg, p["mixer"], h, positions, kind=spec.attn_kind, impl=impl)
+        y = L.attn_apply(cfg, p["mixer"], h, positions, kind=spec.attn_kind, causal=causal,
+                         impl=impl)
     else:
         y = L.mamba_apply(cfg, p["mixer"], h, impl=impl)
-    return _ffn(cfg, spec, p, x + y, impl)
+    x = x + y
+    if spec.cross_attn and cross_states is not None:
+        hx = L.norm_apply(cfg, p["norm_x"], x, impl=impl)
+        x = x + L.attn_apply(cfg, p["cross"], hx, positions, cross_states=cross_states,
+                             impl=impl)
+    return _ffn(cfg, spec, p, x, impl)
 
 
 def layer_cache_init(
     cfg: ModelConfig, spec: LayerSpec, batch: int, max_len: int, device: torch.device
 ) -> Params:
+    """The mixer's cache, and for a cross-attention layer K/V of ``num_image_tokens``
+    zeros, as the reference makes them (prefill replaces them with the projected
+    states)."""
     if spec.mixer == "attn":
-        return {"self": L.attn_cache_init(cfg, batch, max_len, device, kind=spec.attn_kind)}
-    return {"self": L.mamba_cache_init(cfg, batch, device)}
+        c = {"self": L.attn_cache_init(cfg, batch, max_len, device, kind=spec.attn_kind)}
+    else:
+        c = {"self": L.mamba_cache_init(cfg, batch, device)}
+    if spec.cross_attn:
+        shape = (batch, cfg.n_kv_heads, cfg.num_image_tokens, cfg.hd)
+        c["cross"] = {n: torch.zeros(shape, dtype=cfg.cdtype, device=device) for n in "kv"}
+    return c
 
 
 def layer_decode(
@@ -112,7 +142,11 @@ def layer_decode(
                                          kind=spec.attn_kind)
     else:
         y, cache["self"] = L.mamba_decode(cfg, p["mixer"], h, cache["self"], impl=impl)
-    return _ffn(cfg, spec, p, x_t + y, impl), cache
+    x_t = x_t + y
+    if spec.cross_attn:
+        hx = L.norm_apply(cfg, p["norm_x"], x_t, impl=impl)
+        x_t = x_t + L.cross_attn_decode(cfg, p["cross"], hx, cache["cross"])
+    return _ffn(cfg, spec, p, x_t, impl, full_capacity=True)[0], cache
 
 
 def layer_prefill(
@@ -123,11 +157,13 @@ def layer_prefill(
     positions: torch.Tensor,
     max_len: int,
     *,
+    cross_states: torch.Tensor | None = None,
     impl: str | None = None,
 ) -> tuple[torch.Tensor, Params]:
     """Forward + cache construction: the same math as ``layer_apply``, and the
     last ``size`` K/V positions, or the conv window and final SSM state, stored in
-    the layer's cache."""
+    the layer's cache; the cross-attention K/V, projected once, serve the attention
+    and the cache."""
     B, S, _ = x.shape
     h = L.norm_apply(cfg, p["norm1"], x, impl=impl)
     if spec.mixer == "mamba":
@@ -137,29 +173,33 @@ def layer_prefill(
         K = cfg.conv_kernel
         conv = F.pad(xc_raw, (0, 0, max(K - 1 - S, 0), 0))[:, -(K - 1):]  # left-pad S < K-1
         cache = {"self": {"conv": conv.to(cfg.cdtype).contiguous(), "ssm": state}}
-        return _ffn(cfg, spec, p, x + y, impl), cache
-    q, k, v = L._qkv(cfg, p["mixer"], h)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
-    window = cfg.local_window if spec.attn_kind == "local" else None
-    o = kernels.flash_attention(q, k, v, causal=True, window=window, impl=impl)
-    y = L._out(cfg, p["mixer"], o)
-
-    cache = layer_cache_init(cfg, spec, B, max_len, x.device)
-    ck, cv = cache["self"]["k"], cache["self"]["v"]
-    size = ck.shape[2]
-    tail = min(S, size)
-    ktail, vtail = k[:, :, S - tail:], v[:, :, S - tail:]
-    if spec.attn_kind == "local" and S > size:
-        # ring placement: the token at absolute position p lives in slot p % size
-        idx = torch.remainder(torch.arange(tail, device=x.device) + (S - tail), size)
-        ck[:, :, idx] = ktail.to(ck.dtype)
-        cv[:, :, idx] = vtail.to(cv.dtype)
     else:
-        ck[:, :, :tail] = ktail.to(ck.dtype)
-        cv[:, :, :tail] = vtail.to(cv.dtype)
+        q, k, v = L._qkv(cfg, p["mixer"], h)
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+        window = cfg.local_window if spec.attn_kind == "local" else None
+        o = kernels.flash_attention(q, k, v, causal=True, window=window, impl=impl)
+        y = L._out(cfg, p["mixer"], o)
 
-    return _ffn(cfg, spec, p, x + y, impl), cache
+        cache = {"self": L.attn_cache_init(cfg, B, max_len, x.device, kind=spec.attn_kind)}
+        ck, cv = cache["self"]["k"], cache["self"]["v"]
+        size = ck.shape[2]
+        tail = min(S, size)
+        ktail, vtail = k[:, :, S - tail:], v[:, :, S - tail:]
+        if spec.attn_kind == "local" and S > size:
+            # ring placement: the token at absolute position p lives in slot p % size
+            idx = torch.remainder(torch.arange(tail, device=x.device) + (S - tail), size)
+            ck[:, :, idx] = ktail.to(ck.dtype)
+            cv[:, :, idx] = vtail.to(cv.dtype)
+        else:
+            ck[:, :, :tail] = ktail.to(ck.dtype)
+            cv[:, :, :tail] = vtail.to(cv.dtype)
+    x = x + y
+    if spec.cross_attn and cross_states is not None:
+        hx = L.norm_apply(cfg, p["norm_x"], x, impl=impl)
+        cache["cross"] = L.cross_cache_init(cfg, p["cross"], cross_states)
+        x = x + L.cross_attn_apply(cfg, p["cross"], hx, cache["cross"], impl=impl)
+    return _ffn(cfg, spec, p, x, impl)[0], cache
 
 
 # ===========================================================================
@@ -208,19 +248,26 @@ def stack_apply(
     x: torch.Tensor,
     positions: torch.Tensor,
     *,
+    causal: bool = True,
+    cross_states: torch.Tensor | None = None,
     impl: str | None = None,
-) -> torch.Tensor:
-    """The layers in depth order.  With autograd recording, the layers of
-    :func:`remat_layers` keep only their input and rerun their forward in the
-    backward (``torch.utils.checkpoint``), as the reference's remat does."""
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The layers in depth order: (x, the MoE aux loss summed over the layers).  With
+    autograd recording, the layers of :func:`remat_layers` keep only their input and
+    rerun their forward in the backward (``torch.utils.checkpoint``), as the
+    reference's remat does."""
     remat = remat_layers(cfg) if torch.is_grad_enabled() else [False] * len(layers)
+    aux_total = _zero(x)
     for spec, lp, rm in zip(cfg.layer_specs(), layers, remat, strict=True):
-        fn = functools.partial(layer_apply, cfg, spec, lp, impl=impl)
+        fn = functools.partial(layer_apply, cfg, spec, lp, causal=causal,
+                               cross_states=cross_states, impl=impl)
         if rm:
-            x = checkpoint(fn, x, positions, use_reentrant=False, preserve_rng_state=False)
+            x, aux = checkpoint(fn, x, positions, use_reentrant=False,
+                                preserve_rng_state=False)
         else:
-            x = fn(x, positions)
-    return x
+            x, aux = fn(x, positions)
+        aux_total = aux_total + aux
+    return x, aux_total
 
 
 def stack_cache_init(
@@ -252,11 +299,13 @@ def stack_prefill(
     positions: torch.Tensor,
     max_len: int,
     *,
+    cross_states: torch.Tensor | None = None,
     impl: str | None = None,
 ) -> tuple[torch.Tensor, list[Params]]:
     caches = []
     for spec, lp in zip(cfg.layer_specs(), layers, strict=True):
-        x, c = layer_prefill(cfg, spec, lp, x, positions, max_len, impl=impl)
+        x, c = layer_prefill(cfg, spec, lp, x, positions, max_len, cross_states=cross_states,
+                             impl=impl)
         caches.append(c)
     return x, caches
 
@@ -277,7 +326,18 @@ def init_params(cfg: ModelConfig, seed: int = 0, device: str | torch.device = "c
     }
     if not cfg.tie_embeddings:
         p["lm_head"] = L.dense_init(gen, (cfg.d_model, cfg.vocab), cfg.pdtype)
+    if cfg.enc_dec:
+        enc = encoder_config(cfg)
+        p["encoder"] = {"layers": stack_init(enc, gen, dev), "final_norm": L.norm_init(enc, dev)}
     return p
+
+
+def encoder_config(cfg: ModelConfig) -> ModelConfig:
+    """Whisper's encoder: ``n_enc_layers`` plain (attention, dense GLU) layers."""
+    return dataclasses.replace(
+        cfg, n_layers=cfg.n_enc_layers, layer_period=(LayerSpec(),), cross_attn_period=0,
+        enc_dec=False,
+    )
 
 
 def _embed(cfg: ModelConfig, p: Params, tokens: torch.Tensor) -> torch.Tensor:
@@ -342,33 +402,67 @@ def _logits(cfg: ModelConfig, p: Params, x: torch.Tensor, *, impl: str | None = 
     return _matmul_f32(x.reshape(B * S, D), w).reshape(B, S, -1)
 
 
-def forward(
-    cfg: ModelConfig, p: Params, tokens: torch.Tensor, *, impl: str | None = None
+def encode(
+    cfg: ModelConfig, p: Params, frames: torch.Tensor, *, impl: str | None = None
 ) -> torch.Tensor:
-    """Full-sequence forward.  tokens (B, S) int → logits (B, S, V) f32.
+    """Whisper-style encoder over precomputed frame embeddings (B, S_enc, D) (the
+    frontend is a stub, as in the reference): non-causal self-attention with RoPE at
+    positions 0..S_enc-1, then the encoder's own final norm."""
+    enc = encoder_config(cfg)
+    pos = torch.arange(frames.shape[1], device=frames.device)
+    x = frames.to(cfg.cdtype)
+    x, _ = stack_apply(enc, p["encoder"]["layers"], x, pos, causal=False, impl=impl)
+    return L.norm_apply(enc, p["encoder"]["final_norm"], x, impl=impl)
 
-    The reference also returns the MoE auxiliary loss, which is zero for the
-    dense layers ported here."""
+
+def _cross_states(cfg: ModelConfig, p: Params, batch: dict, impl) -> torch.Tensor | None:
+    """What cross-attention attends to: the encoded ``enc_frames`` of an
+    encoder-decoder model, a VLM's ``image_embeds`` in the compute dtype, else None."""
+    if cfg.enc_dec:
+        return encode(cfg, p, batch["enc_frames"], impl=impl)
+    if cfg.cross_attn_period:
+        return batch["image_embeds"].to(cfg.cdtype)
+    return None
+
+
+def _forward(cfg: ModelConfig, p: Params, tokens: torch.Tensor, cross_states, impl):
+    """(logits (B, S, V) f32, MoE aux loss): the reference's ``forward``."""
     S = tokens.shape[1]
     pos = torch.arange(S, device=tokens.device)
     x = _embed(cfg, p, tokens)
-    x = stack_apply(cfg, p["layers"], x, pos, impl=impl)
-    return _logits(cfg, p, x, impl=impl)
+    x, aux = stack_apply(cfg, p["layers"], x, pos, cross_states=cross_states, impl=impl)
+    return _logits(cfg, p, x, impl=impl), aux
+
+
+def forward(
+    cfg: ModelConfig,
+    p: Params,
+    tokens: torch.Tensor,
+    *,
+    cross_states: torch.Tensor | None = None,
+    impl: str | None = None,
+) -> torch.Tensor:
+    """Full-sequence forward.  tokens (B, S) int → logits (B, S, V) f32.
+
+    ``cross_states`` is what cross-attention layers attend to (see ``loss_fn``).  The
+    reference also returns the MoE auxiliary loss; ``loss_fn`` reports it."""
+    return _forward(cfg, p, tokens, cross_states, impl)[0]
 
 
 def loss_fn(
     cfg: ModelConfig, p: Params, batch: dict, *, impl: str | None = None
 ) -> tuple[torch.Tensor, dict]:
-    """Mean next-token cross-entropy on ``batch`` (``tokens``, ``labels``: (B, S) int).
-
-    Returns ``(loss, {"nll", "aux"})`` as the reference does; ``aux``, the MoE
-    load-balance loss, is a zero f32 scalar for the dense layers ported here."""
-    logits = forward(cfg, p, batch["tokens"], impl=impl)
+    """Mean next-token cross-entropy on ``batch`` (``tokens``, ``labels``: (B, S) int;
+    ``enc_frames`` (B, S_enc, D) for an encoder-decoder model, ``image_embeds``
+    (B, num_image_tokens, D) for a VLM) plus ``_AUX_WEIGHT`` times the MoE
+    load-balance loss summed over the layers.  Returns ``(loss, {"nll", "aux"})`` as
+    the reference does."""
+    cross = _cross_states(cfg, p, batch, impl)
+    logits, aux = _forward(cfg, p, batch["tokens"], cross, impl)
     labels = batch["labels"].long()
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels[..., None])[..., 0]
     nll = torch.mean(logz - gold)
-    aux = torch.zeros((), dtype=torch.float32, device=logits.device)
     loss = nll + _AUX_WEIGHT * aux
     return loss, {"nll": nll, "aux": aux}
 
@@ -385,13 +479,16 @@ def prefill(
     tokens: torch.Tensor,
     max_len: int,
     *,
+    batch_extras: dict | None = None,
     impl: str | None = None,
 ) -> tuple[torch.Tensor, list[Params]]:
-    """tokens (B, S) int → (logits of the last position (B, V) f32, caches)."""
+    """tokens (B, S) int → (logits of the last position (B, V) f32, caches).
+    ``batch_extras`` holds ``enc_frames`` or ``image_embeds`` (see ``loss_fn``)."""
     S = tokens.shape[1]
     pos = torch.arange(S, device=tokens.device)
+    cross = _cross_states(cfg, p, batch_extras or {}, impl)
     x = _embed(cfg, p, tokens)
-    x, caches = stack_prefill(cfg, p["layers"], x, pos, max_len, impl=impl)
+    x, caches = stack_prefill(cfg, p["layers"], x, pos, max_len, cross_states=cross, impl=impl)
     logits = _logits(cfg, p, x[:, -1:].contiguous(), impl=impl)[:, 0]
     return logits, caches
 

@@ -11,12 +11,14 @@ the gemma3-1b serving path and the internlm2-1.8b training path (K2 also at a wi
 that is no multiple of its 16-byte vector, a single row, a row wider than its
 warp-per-row kernel holds, and rows off a 16-byte boundary).  K4's bf16 kernel (the
 tensor cores) is also held at the main paths' geometries and ragged edges
-(``TC_CASES``) against the twin of its rounding points,
+(``TC_CASES``: causal, windowed, and the non-causal Sq ≠ Skv calls of whisper-medium
+at head_dim 64 and of llama-3.2-vision-11b) against the twin of its rounding points,
 ``ref.flash_attention_fwd_tc_twin``, which rounds P to bf16 before P·V as the kernel
 does, and its gradients through the chunked backward against plain autograd in bf16
 at the bf16 tolerance; its f32 cases run the SIMT kernel.  For the SSD scan
 (K5) the cases of ``tests/kernels/test_ssd_scan.py``, a ragged sequence, the
-mamba2-reduced shape and the mamba2-370m serving shape.  Tolerances: 2e-5 in f32
+mamba2-reduced shape and the serving shapes of mamba2-370m (32 heads) and the Jamba
+block (128 heads).  Tolerances: 2e-5 in f32
 (the same f32 math summed in another order), 2e-2 in bf16 (outputs rounded to bf16
 after f32 math); the rmsnorm backward takes 1e-4/1e-5, as
 ``tests/kernels/test_rmsnorm.py`` does (dw sums thousands of rows in another
@@ -95,6 +97,11 @@ SSD_RAGGED_TC_CASES = {
     "n20_p12_s77": (2, 77, 4, 12, 2, 20),
     "n36_p24_s300": (1, 300, 6, 24, 3, 36),
     "n4_p4_s129": (2, 129, 2, 4, 1, 4),
+}
+# the serving paths' SSD shapes: mamba2-370m (32 heads) and the Jamba block (128 heads)
+SSD_SERVE_CASES = {
+    "serve_mamba2_370m": (4, 1024, 32, 64, 1, 128),
+    "serve_jamba_block": (4, 1024, 128, 64, 1, 128),
 }
 
 
@@ -202,9 +209,16 @@ def test_rmsnorm_kernel_takes_unaligned_rows(cuda, dtype):
 
 # K4's bf16 path (the tensor-core kernel) at the main paths' geometries and ragged
 # edges, name: (B, H, KVH, Sq, Skv, D, causal, window): gemma3-1b's local layers,
-# internlm2-1.8b's 16 query heads on 8 kv heads, and Sq, Skv off the 128-row query
-# tile and the 64-key KV tile at head_dim 128 and 256 (every row sees a column).
+# internlm2-1.8b's 16 query heads on 8 kv heads, Sq, Skv off the 128-row query tile
+# and the 64-key KV tile at head_dim 128 and 256 (every row sees a column), and the
+# non-causal calls of whisper-medium (head_dim 64: the encoder's self-attention at
+# 1500 frames, cross-attention from a 416-token prompt, Skv 1500 = 23·64 + 28) and of
+# llama-3.2-vision-11b (cross-attention, 32 query heads on 8 kv heads, 1600 image
+# tokens).
 TC_CASES = {
+    "whisper_encoder_hd64": (1, 16, 16, 1500, 1500, 64, False, None),
+    "whisper_cross_hd64": (1, 16, 16, 416, 1500, 64, False, None),
+    "vision_cross_gqa32_8": (1, 32, 8, 1024, 1600, 128, False, None),
     "gemma3_hd256_window512": (1, 4, 1, 1024, 1024, 256, True, 512),
     "internlm2_hd128_gqa16_8": (1, 16, 8, 1024, 1024, 128, True, None),
     "ragged_hd128": (2, 4, 2, 200, 333, 128, False, None),
@@ -374,9 +388,9 @@ def _ssd_on(cuda, arrays, dtype):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("case", sorted(SSD_CASES) + ["serve_mamba2_370m"])
+@pytest.mark.parametrize("case", sorted(SSD_CASES) + sorted(SSD_SERVE_CASES))
 def test_ssd_scan_kernel_matches_stepwise(cuda, case, dtype):
-    shape = SSD_CASES.get(case, (4, 1024, 32, 64, 1, 128))
+    shape = {**SSD_CASES, **SSD_SERVE_CASES}[case]
     x, dt, A, B, C = _ssd_on(cuda, make_ssd(9, *shape), dtype)
     before = kernels.LAUNCHES["ssd_scan_fwd"]
     y, hT = ssd_scan_fwd(x, dt, A, B, C)
@@ -390,11 +404,11 @@ def test_ssd_scan_kernel_matches_stepwise(cuda, case, dtype):
     np.testing.assert_allclose(f32(hT), f32(want_h), **SSD_TOL)
 
 
-@pytest.mark.parametrize("case", sorted(SSD_CASES) + ["serve_mamba2_370m"])
+@pytest.mark.parametrize("case", sorted(SSD_CASES) + sorted(SSD_SERVE_CASES))
 def test_ssd_scan_tensor_core_kernel_matches_its_twin(cuda, case):
     """The bf16 passes against ref.ssd_scan_fwd_tc_twin (their rounding points in
     plain PyTorch): y at the bf16 2e-2, the state at 2e-4."""
-    shape = SSD_CASES.get(case, (4, 1024, 32, 64, 1, 128))
+    shape = {**SSD_CASES, **SSD_SERVE_CASES}[case]
     x, dt, A, B, C = _ssd_on(cuda, make_ssd(12, *shape), "bfloat16")
     y, hT = ssd_scan_fwd(x, dt, A, B, C)
     want_y, want_h = tref.ssd_scan_fwd_tc_twin(x, dt, A, B, C)

@@ -101,12 +101,6 @@ def test_configs_match_reference(arch, reduced):
     assert str(tc.pdtype).removeprefix("torch.") == jnp.dtype(jc.pdtype).name
 
 
-@pytest.mark.parametrize("arch", sorted(set(jconfigs.ARCHS) - set(tconfigs.ARCHS)))
-def test_unported_archs_raise_naming_the_roadmap(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tconfigs.get_config(arch)
-
-
 def test_rope_matches_reference():
     rs = np.random.RandomState(0)
     x = rs.randn(2, 3, 10, 16).astype(np.float32)
@@ -298,19 +292,6 @@ def test_init_params_shapes_match_reference():
     )
     for a, b in zip(jax.tree.leaves(tp), jax.tree.leaves(jp)):
         assert a.shape == b.shape and a.dtype == b.dtype
-
-
-def test_unported_layers_raise():
-    cfg = tmodels.ModelConfig(layer_period=(tmodels.LayerSpec(moe=True),), **F32)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tmodels.init_params(cfg, device="cpu")
-
-
-@pytest.mark.parametrize("spec", [dict(cross_attn=True), dict(mixer="mamba", moe=True)])
-def test_unported_mamba_and_cross_layers_raise(spec):
-    cfg = tmodels.ModelConfig(layer_period=(tmodels.LayerSpec(**spec),), **F32)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tmodels.init_params(cfg, device="cpu")
 
 
 # ---------------------------------------------------------------------------
