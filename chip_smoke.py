@@ -78,12 +78,16 @@ Drives ``repro_torch`` only (never ``repro`` or ``jax``), on one CUDA device:
     repro_torch.launch.train --compiler myia`` with its checkpoint;
 20. computes one full-width step's loss and gradients with the K1 kernels and in
     kernel mode ``"ref"`` (the oracles) from the same state, and compares them;
-21. holds K4's non-causal modes at this slice's shapes (whisper-medium's encoder
-    self-attention at 1500 frames and its cross-attention from 416 prompt tokens, at
-    head_dim 64; llama-3.2-vision-11b's GQA cross-attention over 1600 image tokens)
-    against the plain version and the tensor-core twin, its ``lse`` at the f32
-    tolerance, and K5 at the Jamba block's 128 SSM heads against the stepwise
-    recurrence, each timed three ways beside SDPA (K4) and its bound;
+21. holds the kernels at every shape this slice's paths give them, in bf16: K4 against
+    the plain version and the tensor-core twin, its ``lse`` at the f32 tolerance
+    (whisper-medium's non-causal encoder self-attention at 1500 frames, its decoder's
+    causal self-attention and its cross-attention from 416 prompt tokens, all at
+    head_dim 64; llama-3.2-vision-11b's causal GQA self-attention and its GQA
+    cross-attention over 1600 image tokens); K2 at whisper's width 1024, vision's and
+    Jamba's 4096 (the widest row of the warp-per-row kernel) and Jamba's gate norm over
+    8192 (the block-per-row kernel), prefill and decode rows; and K5 at the Jamba
+    block's 128 SSM heads against the stepwise recurrence; each timed three ways beside
+    its library call (SDPA, ``F.rms_norm``) and its bound;
 22. checks the reduced configs of the five MoE, cross-attention and encoder-decoder
     archs in f32: prefill (logits and every cache) and 4 decode steps, the card with
     its kernels against the CPU with the plain versions;
@@ -97,8 +101,10 @@ Drives ``repro_torch`` only (never ``repro`` or ``jax``), on one CUDA device:
 25. the same for one Jamba block (8 of jamba-v0.1-52b's 32 layers: the whole model
     does not fit on one card) at prompt 1024: 1 K4, 21 K5 (7 calls of 3 passes) and
     24 K2 a prefill, 24 K2 a decode step, and the share of (token, k) routing choices
-    on which the kernels and the plain versions agree; its f32 comparison runs on the
-    block's first 4 layers.
+    on which the kernels and the plain versions agree (bounded in bf16 and in f32),
+    beside the spread of two plain versions with no kernel between them; its f32
+    comparison runs on the block's first 4 layers.  The bf16 logit bound of this path
+    checks no kernel (phase 21 does, at its shapes).
 
 A failed phase raises and the script exits non-zero.  The last lines are the
 kernels' record, the card's name and power limit, and the device line.
@@ -192,9 +198,10 @@ MYIA_REF_LOSS_REL, MYIA_REF_GRAD_REL = 1e-6, 1e-5
 MYIA_B, MYIA_S, MYIA_LR, MYIA_STEPS = 8, 256, 3e-4, 20
 
 # This slice's serving paths (phases 23-25): whisper-medium, llama-3.2-vision-11b and
-# one Jamba block, batch 4, 32 greedy tokens; whisper's 416 prompt tokens and 32
-# generated ones fill its published decoder context of 448, after 1500 encoder frames.
-XA_B, XA_GEN, WHISPER_PROMPT, XA_PROMPT = 4, 32, 416, 1024
+# one Jamba block, batch 4, 32 greedy tokens; whisper's prompt and its 32 generated
+# tokens fill its published decoder context (configs.DEC_CONTEXT, 448), after 1500
+# encoder frames.
+XA_B, XA_GEN, XA_PROMPT = 4, 32, 1024
 # Jamba v0.1 at full width has 32 layers (52B, ~104 GB in bf16): one whole period of 8
 # (attention at index 3, MoE at the odd ones, ~13.3B) fits on one card.  Its f32
 # comparison takes the block's first 4 layers (2 MoE layers, ~28 GB in f32).
@@ -211,14 +218,44 @@ JAMBA_LAYERS, JAMBA_F32_LAYERS = 8, 4
 XA_F32_REL_BOUND = 1e-3
 XA_BF16_REL_BOUND = 0.1
 JAMBA_BF16_REL_BOUND = 0.5
+# The Jamba bf16 bound is no check of a kernel: it cannot tell a wrong bf16 kernel from
+# the amplified roundings.  The kernels are held at the path's shapes one by one in
+# phase 21, and the path's wrong terms by the f32 comparison.  The share of (token, k)
+# routing choices that the kernels and the plain versions make alike is bounded too:
+# read on an H100 (this script, the first sound run of this path), 95.20% in bf16
+# through the block's 4 MoE layers and 100% in f32 through its first 2.  A wrong
+# router input routes near at random (2 of 16 experts alike by chance), so 90% and
+# 99.9% catch it and leave room for the bf16 near-ties.  Beside them the script reads
+# two plain versions with no kernel between them (impl "chunked": the chunked SSD and
+# online-softmax attention against the stepwise recurrence and the whole softmax), the
+# spread that bf16 alone makes on these weights.
+JAMBA_BF16_ROUTE_MIN = 0.90
+JAMBA_F32_ROUTE_MIN = 0.999
 
-# (B, H, KVH, Sq, Skv, D): K4's non-causal calls on this slice's paths, at the
-# serving batch (phase 21): whisper's encoder self-attention and cross-attention at
-# head_dim 64, and vision's GQA cross-attention over 1600 image tokens
+# (B, H, KVH, Sq, Skv, D, causal): K4's calls on this slice's paths, at the serving
+# batch (phase 21): whisper's encoder self-attention (non-causal), its decoder's
+# causal self-attention over the 416-token prompt and its cross-attention, all at
+# head_dim 64; vision's causal GQA self-attention and its GQA cross-attention over
+# 1600 image tokens (the Jamba block's one attention layer has vision's shape)
 XATTN_CASES = {
-    "whisper encoder": (4, 16, 16, 1500, 1500, 64),
-    "whisper cross": (4, 16, 16, 416, 1500, 64),
-    "vision cross": (4, 32, 8, 1024, 1600, 128),
+    "whisper encoder": (4, 16, 16, 1500, 1500, 64, False),
+    "whisper decoder": (4, 16, 16, 416, 416, 64, True),
+    "whisper cross": (4, 16, 16, 416, 1500, 64, False),
+    "vision self": (4, 32, 8, 1024, 1024, 128, True),
+    "vision cross": (4, 32, 8, 1024, 1600, 128, False),
+}
+# K2's bf16 rows on this slice's paths (phase 21): whisper's D 1024 (the encoder's 1500
+# frames, the decoder's 416-token prompt), vision's and the Jamba block's D 4096 (the
+# widest row of the warp-per-row kernel), the Jamba gate norm over d_inner 8192 (the
+# block-per-row kernel), and a decode step's rows at each width
+RMS_XA_CASES = {
+    "whisper encoder": (4, 1500, 1024),
+    "whisper decoder": (4, 416, 1024),
+    "whisper decode": (4, 1, 1024),
+    "vision / Jamba": (4, 1024, 4096),
+    "vision / Jamba decode": (4, 1, 4096),
+    "Jamba gate norm": (4, 1024, 8192),
+    "Jamba gate norm decode": (4, 1, 8192),
 }
 # (Bt, S, H, P, G, N): K5 at the Jamba block's serving shape (128 SSM heads)
 SSD_JAMBA = (4, 1024, 128, 64, 1, 128)
@@ -662,11 +699,10 @@ def xattn_moe_phases(torch, dev, card: str) -> dict:
     (card against CPU), then whisper-medium, llama-3.2-vision-11b and one Jamba block
     served at full width.  Returns each served path's launch counts over its prefill
     and decode."""
-    from repro_torch.configs import ENC_FRAMES, get_config
+    from repro_torch.configs import DEC_CONTEXT, ENC_FRAMES, get_config
     from repro_torch.kernels import LAUNCHES, reset_launches
     from repro_torch.launch.serve import make_requests, serve_decode, serve_prefill
     from repro_torch.models import init_params
-    from repro_torch.models import layers as L
     from repro_torch.tree import leaves, map_leaves
 
     cpu = torch.device("cpu")
@@ -698,25 +734,17 @@ def xattn_moe_phases(torch, dev, card: str) -> dict:
         "caches, conv and SSM state) + 4 decode steps: card kernels agree with CPU plain "
         "within 3e-4 / 5e-4")
 
-    def routes_of(fn):
-        """fn's result and the expert indices (G, Sg, K) of every MoE layer it routes."""
-        seen, route = [], L.moe_route
-
-        def recording(cfg_, p_, xg):
-            out = route(cfg_, p_, xg)
-            seen.append(out[2])
-            return out
-
-        L.moe_route = recording
-        try:
-            return fn(), seen
-        finally:
-            L.moe_route = route
-
     def agreement(a, b) -> float:
-        """The share of (token, k) routing choices that two runs make alike."""
+        """The share of (token, k) routing choices that two runs make alike: a and b
+        hold the expert indices (G, Sg, K) of every MoE layer, as ``prefill(routes=)``
+        collects them."""
         same = sum(int((x == y).sum()) for x, y in zip(a, b, strict=True))
         return same / sum(x.numel() for x in a)
+
+    def routing(a, b) -> str:
+        by_layer = ", ".join(f"{agreement([x], [y]):.2%}" for x, y in zip(a, b, strict=True))
+        return (f"(token, k) routing choices alike in {agreement(a, b):.4%} (by MoE layer: "
+                f"{by_layer})")
 
     def compare(label, got, want, rel_bound, extra=""):
         diff = (got - want).abs().max().item()
@@ -795,18 +823,23 @@ def xattn_moe_phases(torch, dev, card: str) -> dict:
         say(f"[{tag}] first tokens: {tokens[:, :8].tolist()}")
         del caches, step_logits
 
-        def prefill(cfg_, impl, extras_=extras):
+        def prefill(cfg_, impl, extras_=extras, routes=None):
             return serve_prefill(cfg_, params, prompts, max_len, batch_extras=extras_,
-                                 impl=impl)[0]
+                                 impl=impl, routes=routes)[0]
 
-        route = ""
+        rk, rr, rc = [], [], []
+        prefill(cfg, None, routes=rk)
+        logits_ref = prefill(cfg, "ref", routes=rr)
+        compare(f"{tag} bf16", logits, logits_ref, bf16_bound,
+                f"; {routing(rk, rr)}" if cfg.num_experts else "")
         if cfg.num_experts:
-            (_, rk), (logits_ref, rr) = routes_of(lambda: prefill(cfg, None)), \
-                routes_of(lambda: prefill(cfg, "ref"))
-            route = f"; (token, k) routing choices alike in {agreement(rk, rr):.4%}"
-        else:
-            logits_ref = prefill(cfg, "ref")
-        compare(f"{tag} bf16", logits, logits_ref, bf16_bound, route)
+            # bf16's own spread: two plain versions, no kernel between them
+            logits_chunked = prefill(cfg, "chunked", routes=rc)
+            spread = (logits_chunked - logits_ref).abs().max() / logits_ref.abs().max()
+            say(f"[{tag} bf16] two plain versions, no kernel (impl 'chunked' against 'ref'): "
+                f"last-position logits {spread.item():.3e} x max|logit|; {routing(rc, rr)}")
+            assert agreement(rk, rr) >= JAMBA_BF16_ROUTE_MIN, (tag, agreement(rk, rr))
+            del logits_chunked
         del logits, logits_ref
         cfg32 = dataclasses.replace(cfg, param_dtype="float32", compute_dtype="float32")
         if f32_layers is not None:
@@ -815,16 +848,14 @@ def xattn_moe_phases(torch, dev, card: str) -> dict:
         widen_in_place(params)
         torch.cuda.empty_cache()
         extras32 = {k: v.float() for k, v in extras.items()}
-        route = ""
-        if cfg.num_experts:
-            (lk, rk), (lr, rr) = routes_of(lambda: prefill(cfg32, None, extras32)), \
-                routes_of(lambda: prefill(cfg32, "ref", extras32))
-            route = f"; (token, k) routing choices alike in {agreement(rk, rr):.4%}"
-        else:
-            lk, lr = prefill(cfg32, None, extras32), prefill(cfg32, "ref", extras32)
+        rk, rr = [], []
+        lk, lr = prefill(cfg32, None, extras32, rk), prefill(cfg32, "ref", extras32, rr)
         compare(f"{tag} f32", lk, lr, XA_F32_REL_BOUND,
                 f" (the same weights widened to f32"
-                f"{f', the first {f32_layers} layers' if f32_layers else ''}){route}")
+                f"{f', the first {f32_layers} layers' if f32_layers else ''})"
+                f"{f'; {routing(rk, rr)}' if cfg.num_experts else ''}")
+        if cfg.num_experts:
+            assert agreement(rk, rr) >= JAMBA_F32_ROUTE_MIN, (tag, agreement(rk, rr))
         del params, lk, lr
         torch.cuda.empty_cache()
         return {n: prefill_counts[n] + decode_counts[n] for n in LAUNCHES}
@@ -834,7 +865,7 @@ def xattn_moe_phases(torch, dev, card: str) -> dict:
     # K4: 24 encoder (non-causal), 24 decoder (causal), 24 cross; K2: 2 x 24 + 1 in the
     # encoder, 3 x 24 + 1 in the decoder, and 3 x 24 + 1 a decode step
     counts["serve_whisper"] = serve_path(
-        "serve-whisper", get_config("whisper-medium"), WHISPER_PROMPT,
+        "serve-whisper", get_config("whisper-medium"), DEC_CONTEXT - XA_GEN,
         {"flash_attention_fwd": 72, "rmsnorm_fwd": 122}, {"rmsnorm_fwd": 73},
         XA_BF16_REL_BOUND, note=f"; {ENC_FRAMES} encoder frames (30 s at 50 Hz)")
     # -- 24. llama-3.2-vision-11b: 40 layers, cross-attention on 8 --------------------
@@ -1697,38 +1728,41 @@ def main() -> int:
     # -- 17-20. K1 and the Myia-compiled train step -------------------------------
     myia_counts, myia_fused = myia_phases(torch, dev, records, f"{name} ({smi})")
 
-    # -- 21. K4's non-causal modes and K5 at 128 heads, at this slice's shapes ------
-    def fa_noncausal_case(label, q, k, v):
-        """K4 non-causal against the plain version and the tensor-core twin (o at the
-        bf16 tolerance, lse at the f32 one), timed beside SDPA: a row of the record."""
+    # -- 21. K4, K2 and K5 at this slice's shapes ---------------------------------
+    def fa_xattn_case(label, q, k, v, causal):
+        """K4 against the plain version and the tensor-core twin (o at the bf16
+        tolerance, lse at the f32 one), timed beside SDPA: a row of the record."""
         B_, H_, Sq, D_ = q.shape
         Skv = k.shape[2]
-        o, lse = flash_attention_fwd(q, k, v, return_lse=True)
-        want = ref.flash_attention_ref(q, k, v)
-        twin_o, twin_lse = ref.flash_attention_fwd_tc_twin(q, k, v)
-        chunked_lse = ref.flash_attention_fwd_lse_chunked(q, k, v)[1]
+        o, lse = flash_attention_fwd(q, k, v, causal=causal, return_lse=True)
+        want = ref.flash_attention_ref(q, k, v, causal=causal)
+        twin_o, twin_lse = ref.flash_attention_fwd_tc_twin(q, k, v, causal=causal)
+        chunked_lse = ref.flash_attention_fwd_lse_chunked(q, k, v, causal=causal)[1]
         err, twin_err = check(o, want, "bfloat16"), check(o, twin_o, "bfloat16")
         for want_lse in (chunked_lse, twin_lse):
             torch.testing.assert_close(lse, want_lse, **TOL["float32"])
         lse_err = max((lse - chunked_lse).abs().max().item(),
                       (lse - twin_lse).abs().max().item())
-        assert torch.equal(flash_attention_fwd(q, k, v), o)  # without lse, the same o
+        # without lse, the same o
+        assert torch.equal(flash_attention_fwd(q, k, v, causal=causal), o)
         del twin_o, twin_lse, chunked_lse
-        lib = lambda: F.scaled_dot_product_attention(q, k, v, enable_gqa=True)
+        assert not causal or Sq == Skv, "SDPA's is_causal aligns the mask at the top left"
+        lib = lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal, enable_gqa=True)
         lib_err = (lib().float() - want.float()).abs().max().item()
         del want
-        flops = 4 * B_ * H_ * D_ * Sq * Skv
+        flops = 4 * B_ * H_ * D_ * visible_pairs(Sq, Skv, causal, None)
         bound_ms, bound_by = bound((2 * q.numel() + k.numel() + v.numel()) * q.element_size(),
                                    flops, BF16_TENSOR_FLOPS)
-        kern = readings(torch, lambda: flash_attention_fwd(q, k, v))
+        kern = readings(torch, lambda: flash_attention_fwd(q, k, v, causal=causal))
         lib_r = readings(torch, lib)
         rec = record("flash_attention_fwd", "cuda", "src/repro_torch/csrc/flash_attention.cu",
                      "src/repro/kernels/flash_attention.py:111", max(err, lse_err), kern,
-                     time_ms(torch, lambda: ref.flash_attention_ref(q, k, v), reps=10),
+                     time_ms(torch, lambda: ref.flash_attention_ref(q, k, v, causal=causal),
+                             reps=10),
                      bound_ms, bound_by, lib_r)
         say(f"[xattn-kernels] flash_attention_fwd bf16 ({label}) q{(B_, H_, Sq, D_)} "
-            f"kv{(k.shape[1], Skv)} non-causal: max_abs_err vs plain {err:.3e}, vs tensor-core "
-            f"twin {twin_err:.3e}, lse {lse_err:.3e}; {fmt(kern)} plain_ms "
+            f"kv{(k.shape[1], Skv)} causal={causal}: max_abs_err vs plain {err:.3e}, vs "
+            f"tensor-core twin {twin_err:.3e}, lse {lse_err:.3e}; {fmt(kern)} plain_ms "
             f"{rec['plain_ms']:.4f}; SDPA {fmt(lib_r)} (max_abs_err {lib_err:.3e}); bound_ms "
             f"{bound_ms:.6f} ({bound_by}, {flops / 1e9:.3f} GFLOP) achieved "
             f"{flops / rec['ms'] / 1e9:.2f} TFLOP/s, {bound_ms / rec['ms']:.1%} of the bound; "
@@ -1738,13 +1772,20 @@ def main() -> int:
             "library_ms", "library_call_ms", "library_host_us")}}
 
     xattn_rows = []
-    for label, (B_, H_, KVH_, Sq, Skv, D_) in XATTN_CASES.items():
+    for label, (B_, H_, KVH_, Sq, Skv, D_, causal) in XATTN_CASES.items():
         qkv = (randn(B_, H_, Sq, D_, dtype=torch.bfloat16),
                randn(B_, KVH_, Skv, D_, dtype=torch.bfloat16),
                randn(B_, KVH_, Skv, D_, dtype=torch.bfloat16))
-        xattn_rows.append(fa_noncausal_case(label, *qkv))
+        xattn_rows.append(fa_xattn_case(label, *qkv, causal))
         del qkv
     records["flash_attention_fwd"]["at_shapes"] = xattn_rows
+    rms_rows = []
+    for label, shape in RMS_XA_CASES.items():
+        rec = rms_case(randn(*shape, dtype=torch.bfloat16), 1 + 0.1 * randn(shape[-1]))
+        rms_rows.append({"shape": f"{label} {shape}", **{key: rec[key] for key in (
+            "max_abs_err", "ms", "call_ms", "host_us", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")}})
+    records["rmsnorm_fwd"]["at_shapes"] = rms_rows
     jrec = ssd_case(*ssd_inputs(*SSD_JAMBA, torch.bfloat16), timed=True)
     records["ssd_scan_fwd"]["at_shapes"] = [{"shape": "Jamba block, 128 SSM heads", **{
         key: jrec[key] for key in ("max_abs_err", "ms", "call_ms", "host_us", "plain_ms",

@@ -10,7 +10,7 @@ import importlib
 
 from repro_torch.models import ModelConfig
 
-__all__ = ["ARCHS", "ENC_FRAMES", "PENDING", "get_config"]
+__all__ = ["ARCHS", "DEC_CONTEXT", "ENC_FRAMES", "PENDING", "get_config"]
 
 ARCHS: dict[str, str] = {
     "jamba-v0.1-52b": "jamba_v01_52b",
@@ -31,6 +31,10 @@ PENDING: dict[str, str] = {}
 #: Whisper encoder output length (30 s at 50 Hz post-conv — the published
 #: frontend geometry; the conv stub's output length).
 ENC_FRAMES = 1500
+
+#: Whisper's decoder context (``max_target_positions``, 448): prompt and generated
+#: tokens of one encoder-decoder request together.
+DEC_CONTEXT = 448
 
 
 def get_config(arch: str, *, reduced: bool = False) -> ModelConfig:

@@ -6,8 +6,8 @@
 
 Runs ``--arch`` (default gemma3-1b) at full width in bf16 (random weights from a
 seed) on the serving cells of ``chip_smoke.py`` (batch 4, prompt 1024; whisper-medium
-a prompt of 416 after 1500 encoder frames, its published decoder context less the
-32 generated tokens), ``--n-layers`` of them (default: all): a warm-up,
+1500 encoder frames and a prompt of its decoder context less the 32 tokens the cells
+generate), ``--n-layers`` of them (default: all): a warm-up,
 then one prefill and ``STEPS`` decode steps, each phase once with host clocks alone
 and once under ``torch.profiler``.  For each phase it prints the
 wall time, the device's busy time (the sum of its kernels' times, from the
@@ -25,14 +25,12 @@ import time
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from repro_torch.configs import ARCHS, ENC_FRAMES, get_config
+from repro_torch.configs import ARCHS, DEC_CONTEXT, ENC_FRAMES, get_config
 from repro_torch.device import resolve_device
 from repro_torch.launch.serve import make_requests, serve_decode, serve_prefill
 from repro_torch.models import init_params
 
-BATCH, PROMPT_LEN = 4, 1024
-#: whisper-medium: 416 + 32 = 448 tokens, its published decoder context
-PROMPT_LENS = {"whisper-medium": 416}
+BATCH, PROMPT_LEN, GEN = 4, 1024, 32
 STEPS = 8  # decode steps profiled
 TOP = 14  # kernels listed per phase
 
@@ -56,7 +54,7 @@ def main(argv=None) -> int:
     if args.n_layers is not None:
         cfg = dataclasses.replace(cfg, n_layers=args.n_layers)
     params = init_params(cfg, seed=0, device=dev)
-    P = PROMPT_LENS.get(args.arch, PROMPT_LEN)
+    P = DEC_CONTEXT - GEN if cfg.enc_dec else PROMPT_LEN
     prompts, extras = make_requests(cfg, BATCH, P, dev, enc_frames=ENC_FRAMES)
     max_len = P + STEPS + 2
 

@@ -3,8 +3,7 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-1b \\
         --batch 4 --prompt-len 1024 --gen 32
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-370m --prompt-len 1024
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-medium \\
-        --prompt-len 416 --enc-frames 1500
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-medium --prompt-len 416
 
 The port of ``repro.launch.serve --compiler jax``: random weights from a seed,
 a batch of random prompts (the same token ids as ``repro.launch.serve``'s) and the
@@ -61,10 +60,12 @@ def make_requests(
 
 @torch.inference_mode()
 def serve_prefill(cfg: ModelConfig, params, prompts: torch.Tensor, max_len: int, *,
-                  batch_extras: dict | None = None, impl=None):
+                  batch_extras: dict | None = None, impl=None, routes: list | None = None):
     """Prefill the prompts, with the modality stubs of :func:`make_requests`: (logits
-    of the last position (B, V) f32, caches)."""
-    return prefill(cfg, params, prompts, max_len, batch_extras=batch_extras, impl=impl)
+    of the last position (B, V) f32, caches).  ``routes`` collects each MoE layer's
+    expert indices (``models.prefill``)."""
+    return prefill(cfg, params, prompts, max_len, batch_extras=batch_extras, impl=impl,
+                   routes=routes)
 
 
 @torch.inference_mode()
@@ -110,8 +111,6 @@ def main(argv=None) -> int:
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--gen", type=int, default=32)
-    ap.add_argument("--enc-frames", type=int, default=64,
-                    help="encoder frames of an encoder-decoder model's stub input")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = ap.parse_args(argv)
 
@@ -119,8 +118,7 @@ def main(argv=None) -> int:
     cfg = get_config(args.arch, reduced=args.reduced)
     params = init_params(cfg, seed=0, device=device)
     max_len = args.prompt_len + args.gen
-    prompts, extras = make_requests(cfg, args.batch, args.prompt_len, device,
-                                    enc_frames=args.enc_frames)
+    prompts, extras = make_requests(cfg, args.batch, args.prompt_len, device)
 
     _sync(device)
     t0 = time.monotonic()

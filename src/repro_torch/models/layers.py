@@ -251,7 +251,8 @@ def moe_route(cfg: ModelConfig, p: Params, xg: torch.Tensor):
 
 
 def moe_apply(
-    cfg: ModelConfig, p: Params, x: torch.Tensor, *, full_capacity: bool = False
+    cfg: ModelConfig, p: Params, x: torch.Tensor, *, full_capacity: bool = False,
+    routes: list | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Returns (y, aux loss).  Token-choice top-K routing with per-group capacity and
     index-based dispatch, as the reference's:
@@ -262,12 +263,15 @@ def moe_apply(
         combine:  scatter-add of the gated expert outputs back to the tokens
 
     Assignments take slots in token-major, then k, order; those past an expert's C
-    slots are dropped (the residual passes the token through)."""
+    slots are dropped (the residual passes the token through).  Where ``routes`` is
+    given, the expert indices (G, Sg, K) are appended to it."""
     B, S, D = x.shape
     E, K = cfg.num_experts, cfg.top_k
     G, Sg, C = moe_capacity(cfg, B, S, full_capacity)
     xg = x.reshape(G, Sg, D)
     probs, gate_vals, gate_idx = moe_route(cfg, p, xg)
+    if routes is not None:
+        routes.append(gate_idx)
 
     # load-balancing auxiliary loss (Switch/GShard)
     me = probs.mean(dim=(0, 1))

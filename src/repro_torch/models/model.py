@@ -72,14 +72,16 @@ def layer_init(
 
 
 def _ffn(cfg: ModelConfig, spec: LayerSpec, p: Params, x: torch.Tensor, impl, *,
-         full_capacity: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
+         full_capacity: bool = False, routes: list | None = None
+         ) -> tuple[torch.Tensor, torch.Tensor]:
     """The channel-mixing sublayer with its residual, and the MoE aux loss (zero for
-    the dense MLP and a mixer-only layer)."""
+    the dense MLP and a mixer-only layer); an MoE layer appends its expert indices to
+    ``routes`` where given."""
     if not spec.ffn:
         return x, _zero(x)
     h2 = L.norm_apply(cfg, p["norm2"], x, impl=impl)
     if spec.moe:
-        y2, aux = L.moe_apply(cfg, p["ffn"], h2, full_capacity=full_capacity)
+        y2, aux = L.moe_apply(cfg, p["ffn"], h2, full_capacity=full_capacity, routes=routes)
         return x + y2, aux
     return x + L.mlp_apply(cfg, p["ffn"], h2), _zero(x)
 
@@ -159,11 +161,12 @@ def layer_prefill(
     *,
     cross_states: torch.Tensor | None = None,
     impl: str | None = None,
+    routes: list | None = None,
 ) -> tuple[torch.Tensor, Params]:
     """Forward + cache construction: the same math as ``layer_apply``, and the
     last ``size`` K/V positions, or the conv window and final SSM state, stored in
     the layer's cache; the cross-attention K/V, projected once, serve the attention
-    and the cache."""
+    and the cache.  An MoE layer appends its expert indices to ``routes``."""
     B, S, _ = x.shape
     h = L.norm_apply(cfg, p["norm1"], x, impl=impl)
     if spec.mixer == "mamba":
@@ -199,7 +202,7 @@ def layer_prefill(
         hx = L.norm_apply(cfg, p["norm_x"], x, impl=impl)
         cache["cross"] = L.cross_cache_init(cfg, p["cross"], cross_states)
         x = x + L.cross_attn_apply(cfg, p["cross"], hx, cache["cross"], impl=impl)
-    return _ffn(cfg, spec, p, x, impl)[0], cache
+    return _ffn(cfg, spec, p, x, impl, routes=routes)[0], cache
 
 
 # ===========================================================================
@@ -301,11 +304,12 @@ def stack_prefill(
     *,
     cross_states: torch.Tensor | None = None,
     impl: str | None = None,
+    routes: list | None = None,
 ) -> tuple[torch.Tensor, list[Params]]:
     caches = []
     for spec, lp in zip(cfg.layer_specs(), layers, strict=True):
         x, c = layer_prefill(cfg, spec, lp, x, positions, max_len, cross_states=cross_states,
-                             impl=impl)
+                             impl=impl, routes=routes)
         caches.append(c)
     return x, caches
 
@@ -481,14 +485,18 @@ def prefill(
     *,
     batch_extras: dict | None = None,
     impl: str | None = None,
+    routes: list | None = None,
 ) -> tuple[torch.Tensor, list[Params]]:
     """tokens (B, S) int → (logits of the last position (B, V) f32, caches).
-    ``batch_extras`` holds ``enc_frames`` or ``image_embeds`` (see ``loss_fn``)."""
+    ``batch_extras`` holds ``enc_frames`` or ``image_embeds`` (see ``loss_fn``).
+    Where ``routes`` is given, each MoE layer appends its expert indices (G, Sg, K)
+    to it, in depth order."""
     S = tokens.shape[1]
     pos = torch.arange(S, device=tokens.device)
     cross = _cross_states(cfg, p, batch_extras or {}, impl)
     x = _embed(cfg, p, tokens)
-    x, caches = stack_prefill(cfg, p["layers"], x, pos, max_len, cross_states=cross, impl=impl)
+    x, caches = stack_prefill(cfg, p["layers"], x, pos, max_len, cross_states=cross, impl=impl,
+                              routes=routes)
     logits = _logits(cfg, p, x[:, -1:].contiguous(), impl=impl)[:, 0]
     return logits, caches
 

@@ -181,12 +181,15 @@ def test_flash_attention_kernel_ragged_edges(cuda, dtype, Sq, Skv, D):
 @pytest.mark.parametrize(
     "shape",
     [(2, 256, 64), (120, 96), (4, 1024, 1152), (4, 1, 1152), (8, 1024, 2048), (64, 100),
-     (1, 2048), (3, 5000)],
+     (1, 2048), (3, 5000), (1500, 1024), (4, 1, 1024), (2, 1024, 4096), (4, 1, 4096),
+     (2, 1024, 8192), (4, 1, 8192)],
 )
 def test_rmsnorm_kernel_matches_plain(cuda, dtype, shape):
     """K2 at the serving (1152) and training (2048) widths, a width that is no multiple
-    of the 16-byte vector (100), a single row, and a row wider than the warp-per-row
-    kernel holds (5000)."""
+    of the 16-byte vector (100), a single row, a row wider than the warp-per-row
+    kernel holds (5000), and the widths of whisper-medium (1024), of
+    llama-3.2-vision-11b and the Jamba block (4096, the widest warp-per-row row) and of
+    the Jamba gate norm (8192), prefill and decode rows."""
     rs = np.random.RandomState(0)
     x = torch.from_numpy(rs.randn(*shape).astype(np.float32)).to(cuda, DTYPES[dtype])
     w = torch.from_numpy((1.0 + 0.1 * rs.randn(shape[-1])).astype(np.float32)).to(cuda)
@@ -211,13 +214,15 @@ def test_rmsnorm_kernel_takes_unaligned_rows(cuda, dtype):
 # edges, name: (B, H, KVH, Sq, Skv, D, causal, window): gemma3-1b's local layers,
 # internlm2-1.8b's 16 query heads on 8 kv heads, Sq, Skv off the 128-row query tile
 # and the 64-key KV tile at head_dim 128 and 256 (every row sees a column), and the
-# non-causal calls of whisper-medium (head_dim 64: the encoder's self-attention at
-# 1500 frames, cross-attention from a 416-token prompt, Skv 1500 = 23·64 + 28) and of
-# llama-3.2-vision-11b (cross-attention, 32 query heads on 8 kv heads, 1600 image
-# tokens).
+# calls of whisper-medium (head_dim 64: the encoder's non-causal self-attention at
+# 1500 frames, the decoder's causal self-attention over a 416-token prompt and its
+# cross-attention, Skv 1500 = 23·64 + 28) and of llama-3.2-vision-11b (32 query heads
+# on 8 kv heads: causal self-attention, and cross-attention over 1600 image tokens).
 TC_CASES = {
     "whisper_encoder_hd64": (1, 16, 16, 1500, 1500, 64, False, None),
+    "whisper_decoder_causal_hd64": (1, 16, 16, 416, 416, 64, True, None),
     "whisper_cross_hd64": (1, 16, 16, 416, 1500, 64, False, None),
+    "vision_self_causal_gqa32_8": (1, 32, 8, 1024, 1024, 128, True, None),
     "vision_cross_gqa32_8": (1, 32, 8, 1024, 1600, 128, False, None),
     "gemma3_hd256_window512": (1, 4, 1, 1024, 1024, 256, True, 512),
     "internlm2_hd128_gqa16_8": (1, 16, 8, 1024, 1024, 128, True, None),

@@ -137,3 +137,18 @@ def test_params_from_jax_carries_every_new_leaf(arch):
                                       jp["encoder"]["final_norm"])
 
 
+
+
+@pytest.mark.parametrize("arch", ["grok-1-314b", "jamba-v0.1-52b", "kimi-k2-1t-a32b"])
+def test_prefill_collects_the_routes_of_every_moe_layer(arch):
+    """``prefill(routes=)`` gets each MoE layer's expert indices (B, S, K) in depth
+    order, and the same logits as without it."""
+    _, tc, _, tp = _pair_params(arch)
+    toks = torch.from_numpy(np.random.default_rng(2).integers(0, tc.vocab, (2, 12)))
+    routes = []
+    got, _ = tmodels.prefill(tc, tp, toks, 16, routes=routes)
+    assert torch.equal(got, tmodels.prefill(tc, tp, toks, 16)[0])
+    assert len(routes) == sum(spec.moe for spec in tc.layer_specs()) > 0
+    for idx in routes:
+        assert idx.shape == (2, 12, tc.top_k)
+        assert int(idx.min()) >= 0 and int(idx.max()) < tc.num_experts

@@ -182,6 +182,23 @@ def test_moe_decode_capacity_collisions_match(E, B):
         assert tL.moe_capacity(tc, B, 1, True) == (1, 4, 1)
 
 
+@pytest.mark.parametrize("full_capacity", [False, True])
+def test_moe_apply_routes_are_the_reference_routers_choices(full_capacity):
+    """``routes`` receives the expert indices (G, Sg, K): the reference router's
+    top-K of softmax(x·router) on the same tokens; y is the same with or without it."""
+    jc, tc = pair(**{**MOE, "num_experts": 8, "top_k": 3})
+    pj, pt = _moe(jc)
+    x = _x((2, 32, 64))
+    routes = []
+    ty, _ = tL.moe_apply(tc, pt, t(x), full_capacity=full_capacity, routes=routes)
+    assert torch.equal(ty, tL.moe_apply(tc, pt, t(x), full_capacity=full_capacity)[0])
+    G, Sg, _ = tL.moe_capacity(tc, 2, 32, full_capacity)
+    logits = jnp.asarray(x).reshape(G, Sg, 64) @ jnp.asarray(pj["router"])
+    _, want = jax.lax.top_k(jax.nn.softmax(logits, axis=-1), 3)
+    assert len(routes) == 1 and routes[0].shape == (G, Sg, 3)
+    np.testing.assert_array_equal(routes[0].numpy(), np.asarray(want))
+
+
 def test_moe_top_k_breaks_ties_by_the_lower_index():
     """Equal router probabilities pick the lower expert index, as jax.lax.top_k does."""
     _, tc = pair(**{**MOE, "num_experts": 8, "top_k": 3})
