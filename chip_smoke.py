@@ -104,7 +104,23 @@ Drives ``repro_torch`` only (never ``repro`` or ``jax``), on one CUDA device:
     on which the kernels and the plain versions agree (bounded in bf16 and in f32),
     beside the spread of two plain versions with no kernel between them; its f32
     comparison runs on the block's first 4 layers.  The bf16 logit bound of this path
-    checks no kernel (phase 21 does, at its shapes).
+    checks no kernel (phase 21 does, at its shapes);
+26. the Myia serving runtime (``repro_torch.serve``) at tiny dims (V 48, D 8, H 16, f32,
+    fused): the engine's streams on the card equal the CPU's (the oracles) and the card's
+    ``oracle_generate``, prefill and decode logits within 1e-5 of the largest;
+27. serves gemma3-1b's Myia LM at full width (V 262144, D 1152, H 4608, f32, TF32 off):
+    4 requests of prompt 1024 and 32 greedy tokens over 4 slots, one bucket of 2048,
+    through ``python -m repro_torch.launch.serve --compiler myia --check-oracle
+    --metrics-out --cache-dir`` (unfused, as the launcher runs it), then a fused
+    ``ServeEngine`` on the same requests; both streams equal the full-prefix oracle's,
+    ``compile_retries`` and ``vm_fallbacks`` are 0, and K1's launches equal the fusion
+    plan's exactly (the reference's plan forms no cluster on either graph: 0 a prefill,
+    0 a decode step); prints TTFT, prefill s, decode tok/s, peak memory, compilations
+    against the floor and the cache's counters;
+28. restarts warm: a second process serves the same requests on phase 27's cache
+    directory, unfused and fused, with no miss, no program built (no lowering, no Triton
+    build), as many hits as the cold run's misses and identical streams; then profiles
+    one fused decode step (each launch timed by CUDA events) against the H100's 3.35 TB/s.
 
 A failed phase raises and the script exits non-zero.  The last lines are the
 kernels' record, the card's name and power limit, and the device line.
@@ -231,6 +247,70 @@ JAMBA_BF16_REL_BOUND = 0.5
 # spread that bf16 alone makes on these weights.
 JAMBA_BF16_ROUTE_MIN = 0.90
 JAMBA_F32_ROUTE_MIN = 0.999
+
+# The Myia serving runtime (phases 26-28): gemma3-1b's Myia LM (V 262144, D 1152, H 4608,
+# f32, as serve.init_serve_params makes it), 4 requests of prompt 1024 and 32 greedy
+# tokens over 4 slots, min bucket 32: one bucket of 2048.  Nothing is cut.  The f32
+# products run without TF32 (PyTorch's default, set again in phase 1 and in the warm
+# restart's process), so the engine's streams can be compared exactly with the
+# full-prefix oracle's.
+SM_REQS, SM_PROMPT, SM_GEN, SM_SLOTS, SM_MIN_BUCKET = 4, 1024, 32, 4, 32
+# Tiny dims (phase 26), card against CPU: the same programs, the matmuls summed in
+# other orders by cuBLAS and the CPU; logits within 1e-5 of the largest.
+SM_TINY_REL = 1e-5
+# The path itself runs no K1 kernel (no cluster forms on the serve graphs), so phase 28
+# also proves that the cache finds a fused program's Triton binaries again: the Myia LM
+# loss and its adjoint at tiny dims (4 clusters) through the same cache, cold in this
+# process and warm in the second.  Run in both processes (exec'd from this source).
+SM_K1_PROBE = """
+def k1_probe(cache_dir):
+    import torch
+    from repro_torch.core import api
+    from repro_torch.core.torch_backend import ProgramCache
+    from repro_torch.launch.myia_step import MyiaLMDims, build_lm_loss
+    dims = MyiaLMDims(96, 16, 40)
+    cache = ProgramCache(cache_dir)
+    vag = api.value_and_grad(build_lm_loss(dims, 2, 8), wrt=(0, 1, 2, 3),
+                             options=api.CompileOptions(fuse=True, program_cache=cache))
+    gen = torch.Generator().manual_seed(0)
+    shapes = ((96, 16), (16, 40), (40, 16), (16, 96))
+    args = [(torch.randn(s, generator=gen) * 0.1).cuda() for s in shapes]
+    args += [torch.randint(0, 96, (2, 8), generator=gen, dtype=torch.int32).cuda()
+             for _ in range(2)]
+    loss, _grads = vag(*args)
+    torch.cuda.synchronize()
+    kernels = vag.specialize(tuple(args)).fn.__fused_kernels__
+    return {"loss": float(loss), "stats": cache.stats.as_dict(), "kernels": len(kernels)}
+"""
+# Phase 28's second process: the launcher's engine (unfused) and a fused engine on the
+# cold run's cache directory, then the K1 probe; prints one JSON line (streams, cache
+# counters, launches).
+SM_WARM_SCRIPT = SM_K1_PROBE + """
+import json, sys
+import torch
+torch.backends.cuda.matmul.allow_tf32 = False  # f32 products in f32, as the cold run
+from repro_torch.configs import get_config
+from repro_torch.core.torch_backend import ProgramCache
+from repro_torch.kernels import FUSED_LAUNCHES, LAUNCHES, reset_launches
+from repro_torch.launch import serve as serve_cli
+from repro_torch.serve import ServeEngine
+
+argv = json.loads(sys.argv[1])
+reset_launches()
+report = serve_cli.serve_myia_engine(serve_cli.parse_args(argv), get_config("gemma3-1b"))
+cache = ProgramCache(report["engine"].program_cache.path)
+fused = ServeEngine(report["dims"], report["params"], n_slots=report["engine"].n_slots,
+                    min_bucket=report["engine"].min_bucket, program_cache=cache, fuse=True)
+rids = [fused.submit(p, len(report["results"][r]["tokens"])) for r, p in report["requests"]]
+got = fused.run()
+print(json.dumps({
+    "unfused": {str(r): report["results"][r]["tokens"] for r, _p in report["requests"]},
+    "fused": {str(r): got[r]["tokens"] for r in rids},
+    "stats": [report["cache_stats"], cache.stats.as_dict()],
+    "launches": dict(LAUNCHES), "fused_launches": dict(FUSED_LAUNCHES),
+    "k1_probe": k1_probe(sys.argv[2]),
+}))
+"""
 
 # (B, H, KVH, Sq, Skv, D, causal): K4's calls on this slice's paths, at the serving
 # batch (phase 21): whisper's encoder self-attention (non-causal), its decoder's
@@ -883,6 +963,223 @@ def xattn_moe_phases(torch, dev, card: str) -> dict:
         note=f"; depth cut to {JAMBA_LAYERS} of 32 layers, one whole Jamba block (52B in "
              f"bf16, ~104 GB, does not fit on one card)")
     return counts
+
+
+def serve_myia_phases(torch, dev, card: str) -> dict:
+    """Phases 26-28: the Myia serving runtime (``repro_torch.serve``) at tiny dims card
+    against CPU, then gemma3-1b's Myia LM served at full width through ``python -m
+    repro_torch.launch.serve --compiler myia`` (unfused, as the launcher runs it) and
+    through a fused engine, then a warm restart in a second process on the same
+    program cache, and the profiler over one fused decode step.  Returns the launch
+    counts of each served path (K1's generated kernels by name under ``fused``)."""
+    import os
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import api
+    from repro_torch.core.torch_backend import ProgramCache
+    from repro_torch.kernels import FUSED_LAUNCHES, LAUNCHES, reset_launches
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.obs import profile as obs_profile
+    from repro_torch.serve import (
+        ServeEngine, ServeLMDims, build_decode_step, build_prefill, causal_mask, decode_masks,
+        init_serve_params, oracle_generate,
+    )
+
+    def plan_kernels(engine, kind: str, bucket: int) -> list:
+        """The fused kernels of the engine's ``kind`` program at ``bucket``, from its plan."""
+        fn = engine._prefill_fn if kind == "prefill" else engine._decode_fn
+        runner = next(r for key, r in fn._specializations.items()
+                      if any(a[0] == "arr" and bucket in a[1] for a in key[-1]))
+        return list(runner.fn.__fused_kernels__)
+
+    def rel(got, want) -> float:
+        return ((got.cpu() - want).abs().max() / want.abs().max()).item()
+
+    # -- 26. tiny dims, fused: the card against the CPU (the oracles) ------------------
+    tiny = ServeLMDims(48, 8, 16)
+    p_cpu = init_serve_params(tiny, torch.Generator().manual_seed(0), device="cpu")
+    p_card = tuple(p.to(dev) for p in p_cpu)
+    rng = np.random.default_rng(0)
+    work = [(rng.integers(0, 48, n).tolist(), m) for n, m in [(5, 6), (9, 4), (3, 8), (20, 6)]]
+    streams = []
+    for params in (p_cpu, p_card):
+        eng = ServeEngine(tiny, params, n_slots=2, min_bucket=16, fuse=True)
+        rids = [eng.submit(p, m) for p, m in work]
+        res = eng.run()
+        assert all(res[r]["status"] == "ok" for r in rids), res
+        streams.append([res[r]["tokens"] for r in rids])
+    oracle_card = [oracle_generate(tiny, p_card, p, m) for p, m in work]
+    assert streams[1] == streams[0] == oracle_card, streams + [oracle_card]
+    tok = torch.from_numpy(rng.integers(0, 48, (1, 16)).astype(np.int32))
+    pre = api.myia(build_prefill(tiny), options=api.CompileOptions(fuse=True))
+    want = pre(*p_cpu, tok, causal_mask(16))
+    got = pre(*p_card, tok.to(dev), causal_mask(16, dev))
+    e_pre = max(rel(g, w) for g, w in zip(got, want))
+    dec = api.myia(build_decode_step(tiny, 2), options=api.CompileOptions(fuse=True))
+    kc = torch.randn(2, 16, 8, generator=torch.Generator().manual_seed(1))
+    pos = np.array([3, 11])
+    want = dec(*p_cpu, torch.tensor([4, 31], dtype=torch.int32), kc, kc, *decode_masks(pos, 16))
+    got = dec(*p_card, torch.tensor([4, 31], dtype=torch.int32, device=dev), kc.to(dev),
+              kc.to(dev), *decode_masks(pos, 16, dev))
+    e_dec = max(rel(g, w) for g, w in zip(got, want))
+    say(f"[serve-myia-tiny] V 48 D 8 H 16 f32, fused, 4 requests over 2 slots: streams on the "
+        f"card equal the CPU's and the card's oracle_generate; prefill (logits, k, v) within "
+        f"{e_pre:.2e}, decode within {e_dec:.2e} of their largest element (bound {SM_TINY_REL})")
+    assert e_pre <= SM_TINY_REL and e_dec <= SM_TINY_REL, (e_pre, e_dec)
+
+    # -- 27. full width through the launcher (unfused), then a fused engine ------------
+    cfg = get_config("gemma3-1b")
+    work_dir = Path(tempfile.mkdtemp(prefix="serve_myia_"))
+    cache_dir = str(work_dir / "progcache")
+    argv = ["--compiler", "myia", "--arch", "gemma3-1b", "--batch", str(SM_REQS),
+            "--prompt-len", str(SM_PROMPT), "--gen", str(SM_GEN), "--slots", str(SM_SLOTS),
+            "--min-bucket", str(SM_MIN_BUCKET), "--cache-dir", cache_dir]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.monotonic()
+    report = serve_cli.serve_myia_engine(serve_cli.parse_args(
+        argv + ["--check-oracle", "--trace", str(work_dir / "trace.json"),
+                "--metrics-out", str(work_dir / "metrics.prom")]), cfg)
+    t_cold = time.monotonic() - t0
+    unfused_counts = dict(LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    dims, params, engine = report["dims"], report["params"], report["engine"]
+    assert (dims.vocab, dims.d_model, dims.d_hidden) == (262144, 1152, 4608)
+    stats, cold_cs = report["stats"], report["cache_stats"]
+    bucket = 2048
+    assert stats["buckets_in_use"] == [bucket], stats
+    results = report["results"]
+    rids = [r for r, _p in report["requests"]]
+    assert all(results[r]["status"] == "ok" for r in rids), results
+    assert all(results[r]["tokens"] == report["oracle"][r] for r in rids)
+    tracer = report["tracer"]
+    # the serve.prefill span closes when the program has been launched; the admission
+    # then waits for the card (the sentinel's copy), so a prefill's time is read here
+    # with the card drained around the same call: median of 5, warm
+    tok = torch.from_numpy(np.zeros((1, bucket), np.int32)).to(dev)
+    prefills = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        engine._prefill_fn(*params, tok, causal_mask(bucket, dev))
+        torch.cuda.synchronize()
+        prefills.append(time.perf_counter() - t0)
+    first_build = tracer.find("serve.prefill")[0].dur_s
+    steps = tracer.find("serve.decode_step")
+    decode_tok_s = sum(e.attrs["n_active"] for e in steps) / sum(e.dur_s for e in steps)
+    ttft = [results[r]["ttft_s"] for r in rids]
+    prom = (work_dir / "metrics.prom").read_text()
+    say(f"[serve-myia] {card}: gemma3-1b's Myia LM, V {dims.vocab} D {dims.d_model} H "
+        f"{dims.d_hidden} f32 (TF32 off), {SM_REQS} requests x (prompt {SM_PROMPT} + gen "
+        f"{SM_GEN}) over {SM_SLOTS} slots, bucket {bucket}, through python -m "
+        f"repro_torch.launch.serve --compiler myia (unfused): run {report['wall_s']:.3f}s "
+        f"({t_cold:.1f}s with the oracle check); TTFT first {ttft[0]:.4f}s, last "
+        f"{ttft[-1]:.4f}s (the first admission's serve.prefill span, {first_build:.4f}s, "
+        f"builds the program); prefill {statistics.median(prefills):.4f}s a request (median "
+        f"of {prefills}); decode {decode_tok_s:.1f} tok/s over {len(steps)} steps (median step "
+        f"{statistics.median(e.dur_s for e in steps) * 1e3:.3f} ms); peak memory {peak:.2f} "
+        f"GiB; compilations {stats['compilations']} (floor {stats['compilation_floor']}); "
+        f"streams equal the full-prefix oracle's ({len(rids)} requests)")
+    say(f"[serve-myia] cold cache: {cold_cs}; metrics exposition {len(prom.splitlines())} "
+        f"lines; kernel launches {unfused_counts}")
+    assert stats["total_compilations"] == stats["compilation_floor"] == 2, stats
+    assert cold_cs["misses"] == 2 and cold_cs["programs_built"] == 2, cold_cs
+    assert cold_cs["compile_retries"] == 0 and cold_cs["vm_fallbacks"] == 0, cold_cs
+    assert f"cache_misses {cold_cs['misses']}" in prom
+    assert not any(unfused_counts.values()), unfused_counts
+
+    fused_cache = ProgramCache(cache_dir)
+    reset_launches()
+    fused = ServeEngine(dims, params, n_slots=SM_SLOTS, min_bucket=SM_MIN_BUCKET,
+                        program_cache=fused_cache, fuse=True)
+    frids = [fused.submit(p, SM_GEN) for _r, p in report["requests"]]
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    fres = fused.run()
+    torch.cuda.synchronize()
+    t_fused = time.monotonic() - t0
+    fused_counts, fused_by_name = dict(LAUNCHES), dict(FUSED_LAUNCHES)
+    fcs = fused_cache.stats.as_dict()
+    plan = {kind: plan_kernels(fused, kind, bucket) for kind in ("prefill", "decode")}
+    per_prefill = sum(k.launches_per_call for k in plan["prefill"])
+    per_step = sum(k.launches_per_call for k in plan["decode"])
+    want_k1 = SM_REQS * per_prefill + fused.steps * per_step
+    say(f"[serve-myia] fused engine, same requests: run {t_fused:.3f}s ({fused.tokens_generated} "
+        f"tokens); K1 launches per prefill {per_prefill} and per decode step {per_step} by the "
+        f"fusion plan (the reference's plan: no cluster forms on either graph), {want_k1} "
+        f"expected over {SM_REQS} prefills and {fused.steps} steps, counted "
+        f"{fused_counts['fused_map'] + fused_counts['fused_reduce']} ({fused_by_name}); cache "
+        f"{fcs}")
+    assert all(fres[r]["status"] == "ok" for r in frids), fres
+    assert [fres[r]["tokens"] for r in frids] == [report["oracle"][r] for r in rids]
+    assert fcs["misses"] == 2 and fcs["compile_retries"] == 0 and fcs["vm_fallbacks"] == 0, fcs
+    assert fused_counts["fused_map"] + fused_counts["fused_reduce"] == want_k1, fused_counts
+    # every cluster of the plan launched its Triton kernel, and nothing else launched
+    assert sum(fused_by_name.values()) == want_k1, fused_by_name
+    assert all(fused_by_name.get(k.name, 0) > 0 for ks in plan.values() for k in ks), plan
+    assert not any(v for k, v in fused_counts.items() if not k.startswith("fused_"))
+
+    # -- 28. a warm restart in a second process, then the profiler ---------------------
+    probe_ns: dict = {}
+    exec(SM_K1_PROBE, probe_ns)
+    k1_dir = str(work_dir / "k1cache")
+    cold_k1 = probe_ns["k1_probe"](k1_dir)
+    env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent / "src"))
+    t0 = time.monotonic()
+    out = subprocess.run([sys.executable, "-c", SM_WARM_SCRIPT, json.dumps(argv), k1_dir],
+                         capture_output=True, text=True, env=env, timeout=600)
+    t_warm = time.monotonic() - t0
+    assert out.returncode == 0, out.stderr[-4000:]
+    warm = json.loads(out.stdout.strip().splitlines()[-1])
+    ws = warm["stats"]
+    hits, misses = sum(s["hits"] for s in ws), sum(s["misses"] for s in ws)
+    built = sum(s["programs_built"] for s in ws)
+    cold_misses = cold_cs["misses"] + fcs["misses"]
+    say(f"[serve-myia-warm] second process on the same cache ({t_warm:.1f}s with its start): "
+        f"hits {hits} (cold misses {cold_misses}), misses {misses}, programs built {built}, "
+        f"compile_retries {sum(s['compile_retries'] for s in ws)}, vm_fallbacks "
+        f"{sum(s['vm_fallbacks'] for s in ws)}; streams identical: unfused "
+        f"{warm['unfused'] == {str(r): results[r]['tokens'] for r in rids}}, fused "
+        f"{list(warm['fused'].values()) == [fres[r]['tokens'] for r in frids]}; launches "
+        f"{warm['launches']}")
+    assert misses == 0 and built == 0 and hits == cold_misses, ws
+    assert all(s["compile_retries"] == 0 and s["vm_fallbacks"] == 0 for s in ws), ws
+    assert warm["unfused"] == {str(r): results[r]["tokens"] for r in rids}
+    assert list(warm["fused"].values()) == [fres[r]["tokens"] for r in frids]
+    wk1 = warm["k1_probe"]
+    say(f"[serve-myia-warm] K1 through the cache (the Myia LM loss and adjoint at V 96 D 16 "
+        f"H 40, {cold_k1['kernels']} fused clusters): cold programs built "
+        f"{cold_k1['stats']['programs_built']} (1 lowering + the Triton binaries), warm "
+        f"{wk1['stats']['programs_built']} with hits {wk1['stats']['hits']}; loss "
+        f"{cold_k1['loss']!r} cold, {wk1['loss']!r} warm")
+    assert cold_k1["kernels"] == 4 and cold_k1["stats"]["programs_built"] > 1, cold_k1
+    assert wk1["stats"]["programs_built"] == 0 and wk1["stats"]["hits"] == 1, wk1
+    assert wk1["loss"] == cold_k1["loss"], (wk1, cold_k1)
+
+    prof_fn = api.myia(build_decode_step(dims, SM_SLOTS),
+                       options=api.CompileOptions(fuse=True, profile=True))
+    b0 = fused._batches[bucket]
+    wcol, amask = decode_masks(np.full(SM_SLOTS, SM_PROMPT + 5), bucket, dev)
+    args = (*params, torch.from_numpy(b0.tok).to(dev), b0.kcache, b0.vcache, wcol, amask)
+    prof_fn(*args)  # disarmed: builds the program
+    with obs_profile.profiling(obs_profile.Profiler()):
+        prof_fn(*args)  # armed once: builds the instrumented lowering, first launches
+    prof = obs_profile.Profiler()
+    with obs_profile.profiling(prof):
+        prof_fn(*args)
+    agg = prof.aggregate()
+    say(f"[serve-myia-profile] one fused decode step at bucket {bucket}, {SM_SLOTS} slots, each "
+        f"launch timed by CUDA events, against {prof.peak_gbps:.0f} GB/s ({card}):")
+    for line in prof.attribution_table(top=12).splitlines():
+        say(f"[serve-myia-profile] {line}")
+    assert agg["calls"] > 0 and not prof.aggregate("fused")["calls"], agg
+    assert agg["roofline_fraction"] is not None and 0 < agg["roofline_fraction"] <= 1, agg
+    del report, params, fused, engine, b0, args
+    torch.cuda.empty_cache()
+    return {"serve_myia": unfused_counts, "serve_myia_fused": fused_counts,
+            "fused": fused_by_name}
 
 
 def main() -> int:
@@ -1795,6 +2092,10 @@ def main() -> int:
     # -- 22-25. the MoE, cross-attention and encoder-decoder archs ------------------
     xattn_counts = xattn_moe_phases(torch, dev, f"{name} ({smi})")
 
+    # -- 26-28. the Myia serving runtime ----------------------------------------------
+    serve_myia_counts = serve_myia_phases(torch, dev, f"{name} ({smi})")
+    serve_myia_fused = serve_myia_counts.pop("fused")
+
     # -- records ---------------------------------------------------------------
     # times at the training shapes (K2, K3, K4) and the mamba2 serving shape (K5);
     # launches over the main path of each kernel's own slice (the 20 timed training
@@ -1816,7 +2117,12 @@ def main() -> int:
                               "serve_mamba2": launches_on(mamba_counts, {}, rec),
                               "train_myia": launches_on(myia_counts, myia_fused, rec),
                               **{path: launches_on(c, {}, rec)
-                                 for path, c in xattn_counts.items()}},
+                                 for path, c in xattn_counts.items()},
+                              "serve_myia": launches_on(serve_myia_counts["serve_myia"], {},
+                                                        rec),
+                              "serve_myia_fused": launches_on(
+                                  serve_myia_counts["serve_myia_fused"], serve_myia_fused,
+                                  rec)},
          **({"at_shapes": rec["at_shapes"]} if "at_shapes" in rec else {})}
         for rec in records.values()
     ]

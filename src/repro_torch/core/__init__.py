@@ -9,8 +9,9 @@ The port of ``repro.core``: graph-level artefacts (parsed, adjoint and
 optimized encodings, structural hashes, optimizer rule hits, abstracts,
 fusion plans) are equal to the reference's, and programs execute eagerly
 in torch, with fused clusters as generated Triton kernels on the card.
-The program cache (ROADMAP item A5), the SPMD tier (A9) and the OO tape
-(A8) wait for later slices."""
+Built programs persist in the two-tier program cache
+(``torch_backend.ProgramCache``).  The SPMD tier (ROADMAP item A9) and the
+OO tape (A8) wait for later slices."""
 
 from . import primitives as P  # noqa: F401
 from .ad import J, build_grad_graph, build_value_and_grad_graph, build_vjp_graph  # noqa: F401
@@ -38,6 +39,13 @@ from .serialize import (  # noqa: F401
     serialize_graph,
     structural_hash,
 )
-from .torch_backend import compile_graph, trace_graph  # noqa: F401
+from .torch_backend import (  # noqa: F401
+    CacheStats,
+    CompileFailed,
+    ProgramCache,
+    abstract_value_signature,
+    compile_graph,
+    trace_graph,
+)
 from .values import Closure, EnvInstance, SymbolicKey  # noqa: F401
 from .vm import VM, run_graph  # noqa: F401

@@ -25,10 +25,9 @@ All four entry points (and ``compile_pipeline``) take a single frozen
 The historical per-kwarg spelling (``myia(fn, fuse=True, ...)``) still
 works through a shim that assembles the same ``CompileOptions`` and emits
 a ``DeprecationWarning``; both spellings produce identical compiled
-artifacts (same structural hash — pinned by tests).  The tiers of later
-slices of the port — ``program_cache`` and ``graph_cache`` (ROADMAP item
-A5), ``profile`` and ``explain`` (A6), ``in_specs`` (A9) — raise
-``NotImplementedError`` naming their item when set.  ``checkpoint_policy``
+artifacts (same structural hash — pinned by tests).  ``in_specs`` (the
+SPMD tier, ROADMAP item A9) raises ``NotImplementedError`` naming its item
+when set.  ``checkpoint_policy``
 (loop-adjoint recording: ``"auto"`` / ``"save_all"`` / ``"recompute"`` /
 int slot count, see ``repro_torch.core.ad``) is only reachable through
 ``CompileOptions``.  ``MyiaFunction.options`` holds the resolved object;
@@ -63,7 +62,7 @@ from .ad import (
 )
 from .infer import InferenceError, abstract_of_value, infer
 from .ir import Constant, Graph, clone_graph
-from .lowering import try_lower
+from .lowering import lowering_blockers, try_lower
 from .opt import OptStats, count_nodes, optimize
 from .parser import MyiaSyntaxError, parse_function
 from .dtypes import default_device, device_of, np_dtype, to_numpy
@@ -99,12 +98,16 @@ class CompileOptions:
     ``fuse``             ``False``   fusion clusters → generated Triton kernels
     ``patterns``         ``False``   kernel-pattern rewrites (rmsnorm/attention)
     ``in_specs``         ``None``    SPMD partitioning (ROADMAP A9; raises)
-    ``program_cache``    ``None``    AOT executable tier (ROADMAP A5; raises)
-    ``graph_cache``      ``None``    optimized-graph tier (ROADMAP A5; raises)
+    ``program_cache``    ``None``    executable tier (``ProgramCache``)
+    ``graph_cache``      ``None``    optimized-graph tier (skips optimize warm)
     ``trace``            ``None``    observability (``Tracer`` spans)
     ``checkpoint_policy``  ``"auto"``  loop-adjoint memory/recompute point
-    ``profile``          ``False``   runtime profiler (ROADMAP A6; raises)
+    ``profile``          ``False``   runtime profiler (instrumented launch)
     ===================  ==========  =============================================
+
+    ``graph_cache`` and ``program_cache`` usually point at the *same*
+    :class:`~repro_torch.core.torch_backend.ProgramCache` object — the two
+    tiers key and store independently (``<key>.graph.json`` vs ``<key>.pkl``).
     """
 
     #: execution backend: "torch" (lowered eager) or "vm" (reference)
@@ -117,7 +120,7 @@ class CompileOptions:
     patterns: bool = False
     #: SPMD tier — per-argument sharding specs (active under a mesh)
     in_specs: tuple | None = None
-    #: AOT tier — a ProgramCache making compiled specializations durable
+    #: executable tier — a ProgramCache making built specializations durable
     program_cache: Any = None
     #: optimized-graph tier — a ProgramCache (usually the same object as
     #: ``program_cache``) consulted *before* the optimizer runs: a hit
@@ -129,22 +132,15 @@ class CompileOptions:
     #: loop-adjoint carry recording: "auto" / "save_all" / "recompute"
     #: or an int slot count (see ``repro_torch.core.ad._CHECKPOINT_SLOTS``)
     checkpoint_policy: str | int = "auto"
-    #: runtime-profiler tier (waits for ROADMAP item A6)
+    #: runtime-profiler tier — while a ``repro_torch.obs.profile.Profiler``
+    #: is armed, calls run an instrumented lowering that times every launch
     profile: bool = False
 
     def __post_init__(self) -> None:
-        later = (
-            ("in_specs", self.in_specs is not None, "A9"),
-            ("program_cache", self.program_cache is not None, "A5"),
-            ("graph_cache", self.graph_cache is not None, "A5"),
-            ("profile", bool(self.profile), "A6"),
-        )
-        for field, is_set, item in later:
-            if is_set:
-                raise NotImplementedError(
-                    f"CompileOptions.{field} waits for its slice of the port "
-                    f"(ROADMAP item {item})"
-                )
+        if self.in_specs is not None:
+            raise NotImplementedError(
+                "CompileOptions.in_specs waits for its slice of the port (ROADMAP item A9)"
+            )
         if self.backend not in ("torch", "vm"):
             raise ValueError(f"backend must be 'torch' or 'vm', got {self.backend!r}")
 
@@ -260,9 +256,46 @@ def compile_pipeline(
     if options is not None:
         opt = options.opt
         patterns = options.patterns
+    gcache = options.graph_cache if options is not None else None
     # every phase below opens a span (see docs/observability.md for the
     # taxonomy); disarmed, span() is a single global None-check
     with obs_trace.span("compile_pipeline", graph=graph.name):
+        gkey = None
+        if gcache is not None and opt and infer_types and example_args is not None:
+            # optimized-graph tier: key the PRE-optimization graph × abstract
+            # signature × optimizer config; a hit deserializes the stored
+            # post-optimize post-closure-elim graph and skips both expensive
+            # phases, falling through to infer → lower below
+            from .serialize import SerializeError
+
+            hit = None
+            with obs_trace.span("cache.graph_lookup", graph=graph.name) as sp:
+                try:
+                    gkey = gcache.graph_key(
+                        graph, example_args,
+                        opt=opt, patterns=patterns, loops=loops, engine=engine,
+                    )
+                except SerializeError:
+                    sp.set(verdict="unkeyable")  # exotic constants: full pipeline
+                else:
+                    hit = gcache.load_graph(gkey)
+                    sp.set(verdict="hit" if hit is not None else "miss")
+            if hit is not None:
+                try:
+                    infer(hit, *example_args)  # re-derive abstracts (cheap)
+                except InferenceError:
+                    pass
+                if stats is not None:
+                    from .closure import analyze_blockers
+
+                    with obs_trace.span("closure.analyze_blockers"):
+                        stats.fallback_reasons = [
+                            r.as_dict() for r in analyze_blockers(hit)
+                        ]
+                if snapshot is not None:
+                    snapshot("graph_cache_hit", hit)
+                    snapshot("final", hit)
+                return hit
         with obs_trace.span("clone"):
             g = clone_graph(graph)
         if snapshot is not None:
@@ -293,6 +326,9 @@ def compile_pipeline(
                     optimize(g, engine=engine, stats=stats, patterns=patterns)
                 if snapshot is not None:
                     snapshot("loop_lowered", g)
+        if gkey is not None:
+            with obs_trace.span("cache.graph_write", graph=graph.name):
+                gcache.store_graph(gkey, g)
         if stats is not None:
             from .closure import analyze_blockers
 
@@ -301,6 +337,40 @@ def compile_pipeline(
         if snapshot is not None:
             snapshot("final", g)
         return g
+
+
+def _wrap_profiled(inner: Callable, g: Graph, fuse: bool) -> Callable:
+    """The ``CompileOptions.profile`` tier: while a
+    :class:`repro_torch.obs.profile.Profiler` is armed, route calls to a
+    lazily-built *instrumented* lowering (``lower_graph(profile=True)``) so
+    every launch records its time and bytes moved.  Disarmed — or when the
+    graph doesn't lower — the wrapped runner is a single module-global
+    None-check away from the ordinary tiers."""
+    from repro_torch.obs import profile as obs_profile
+
+    from .lowering import LoweringError, lower_graph
+
+    state: dict[str, Any] = {}
+
+    def runner(*args):
+        if obs_profile._ACTIVE is None:
+            return inner(*args)
+        pfn = state.get("fn", _UNSET)
+        if pfn is _UNSET:
+            try:
+                pfn = lower_graph(g, fuse=fuse, profile=True)
+            except LoweringError:
+                pfn = None  # VM-fallback graph: nothing to instrument
+            state["fn"] = pfn
+        if pfn is None:
+            return inner(*args)
+        return pfn(*args)
+
+    runner.profiled = True
+    for attr in ("lowered", "fn", "aot", "cache_key", "degraded"):
+        if hasattr(inner, attr):
+            setattr(runner, attr, getattr(inner, attr))
+    return runner
 
 
 def _apply_transform(
@@ -462,14 +532,50 @@ class MyiaFunction:
                 example = None  # e.g. a list static: skip inference, VM handles it
             base = self._resolved_graph(example) if self.transforms else self.graph
             g = compile_pipeline(base, example, options=self.options)
-            runner = self._make_runner(g)
+            runner = self._make_runner(g, args)
+            if self.options.profile and self.backend == "torch":
+                runner = _wrap_profiled(runner, g, self.fuse)
             self._specializations[key] = runner
             return runner
 
-    def _make_runner(self, g: Graph) -> Callable:
+    def _make_runner(self, g: Graph, example_args: tuple) -> Callable:
         """The lowered straight-line callable, run eagerly (every call runs
         the same code; fused clusters dispatch by device and kernel mode at
-        each call), or the VM for graphs that do not lower."""
+        each call), or the VM for graphs that do not lower.
+
+        With a ``program_cache``, an all-array specialization of a lowerable
+        graph is answered by the cache: a hit rebuilds the stored program
+        without lowering it; a miss builds it (``lower_graph``) and persists
+        it.  A build that fails past its retries takes the bottom rung of the
+        degraded-mode ladder: the reference VM on the same optimized graph,
+        counted in ``vm_fallbacks``."""
+        if (
+            self.program_cache is not None
+            and self.backend == "torch"
+            and all(is_array_like(a) for a in example_args)
+            and not lowering_blockers(g)
+        ):
+            from .serialize import SerializeError
+            from .torch_backend import CompileFailed
+
+            try:
+                return self.program_cache.load_or_compile(g, example_args, fuse=self.fuse)
+            except SerializeError:
+                pass  # not durable (exotic constants): ordinary tiers
+            except CompileFailed:
+                # bottom rung: the build failed even after bounded retries.  The
+                # reference VM evaluates the same optimized graph, slow but
+                # correct, and the downgrade is counted so a fleet can alarm on it
+                self.program_cache.stats.vm_fallbacks += 1
+
+                def runner(*args):
+                    with default_device(device_of(args)):
+                        return VM().call(g, args)
+
+                runner.lowered = False
+                runner.fn = None
+                runner.degraded = "vm_oracle"
+                return runner
         lowered = try_lower(g, fuse=self.fuse) if self.backend == "torch" else None
         if lowered is not None:
             def runner(*args):
@@ -488,9 +594,15 @@ class MyiaFunction:
 
     # -- introspection (benchmarks / tests) --------------------------------
     def explain(self, *example_args: Any, dump_ir: str | None = None):
-        """The reference's compile report waits for the obs slice of the
-        port (ROADMAP item A6)."""
-        raise NotImplementedError("MyiaFunction.explain waits for ROADMAP item A6")
+        """A structured compile report for this function at
+        ``example_args``'s signature: per-cluster fusion verdicts, per-node
+        decisions with reasons, cache-tier verdicts, checkpoint policies and
+        residual VM-fallback reasons — see
+        :class:`repro_torch.obs.explain.ExplainReport`.  ``dump_ir="dir/"``
+        additionally writes diffable per-stage IR text dumps."""
+        from repro_torch.obs.explain import explain_function
+
+        return explain_function(self, example_args, dump_ir=dump_ir)
 
     def optimized_graph(self, *args: Any) -> Graph:
         example = tuple(abstract_of_value(a) for a in args)
@@ -528,8 +640,11 @@ def myia(
     * ``trace`` (a :class:`repro_torch.obs.trace.Tracer`) arms the
       observability tier: every specialization compiles with the tracer
       armed, so pipeline phases and inline waves land in its buffer.
-    * ``in_specs``, ``program_cache`` and ``profile`` wait for later slices
-      of the port and raise (ROADMAP items A9, A5, A6).
+    * ``program_cache`` (a :class:`repro_torch.core.torch_backend.ProgramCache`)
+      arms the executable tier: all-array specializations of lowerable
+      graphs are built once and persisted, so a warm process rebuilds the
+      stored program instead of lowering it again.
+    * ``in_specs`` waits for the SPMD tier and raises (ROADMAP item A9).
     """
     opts = _resolve_options(options, "myia", {
         "backend": backend, "opt": opt, "fuse": fuse, "patterns": patterns,

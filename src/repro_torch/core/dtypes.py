@@ -140,9 +140,10 @@ def to_tensor(x: Any, device: Any = None) -> torch.Tensor:
     arr = np.asarray(x)
     dt = _CANON.get(arr.dtype, arr.dtype)
     if BF16 is not None and dt == BF16:
-        bits = torch.from_numpy(np.ascontiguousarray(arr).view(np.int16).copy())
+        bits = torch.from_numpy(np.array(arr, order="C").view(np.int16))
         return bits.view(torch.bfloat16).to(device)
-    return torch.from_numpy(np.ascontiguousarray(arr, dtype=dt).copy()).to(device)
+    # np.array, not np.ascontiguousarray: that one turns a 0-d array into shape (1,)
+    return torch.from_numpy(np.array(arr, dtype=dt, order="C")).to(device)
 
 
 def to_numpy(t: torch.Tensor) -> np.ndarray:

@@ -54,6 +54,8 @@ __all__ = [
     "analyze_blockers",
     "lowering_blockers",
     "lower_graph",
+    "lowered_from_payload",
+    "lowered_payload",
     "try_lower",
 ]
 
@@ -152,11 +154,6 @@ def lower_graph(graph: Graph, *, fuse: bool = False, profile: bool = False) -> C
     """
     from repro_torch.obs import trace as obs_trace
 
-    if profile:
-        raise NotImplementedError(
-            "lower_graph(profile=True): the runtime profiler waits for the obs slice "
-            "(ROADMAP item A6)"
-        )
     blockers = lowering_blockers(graph)
     if blockers:
         raise LoweringError("; ".join(blockers))
@@ -274,16 +271,109 @@ def _lower_graph_body(graph: Graph, fuse: bool, profile: bool = False) -> Callab
             lines.append(f"    {name} = {bind_prim(prim)}({args})  # {prim.name}")
     lines.append(f"    return {ref(graph.return_)}")
     source = "\n".join(lines) + "\n"
+    return _assemble(graph.name, source, env, plan, list(fused.values()))
 
+
+def _assemble(name: str, source: str, env: dict, plan: Any, kernels: list) -> Callable:
+    """Compile the emitted ``source`` over ``env`` into the runnable callable
+    (shared by :func:`lower_graph` and :func:`lowered_from_payload`)."""
     namespace = dict(env)
-    exec(compile(source, f"<myia-lowered:{graph.name}>", "exec"), namespace)
+    exec(compile(source, f"<myia-lowered:{name}>", "exec"), namespace)
     fn = _placed(namespace["_lowered"], namespace, env)
-    fn.__name__ = f"lowered_{graph.name}"
+    fn.__name__ = f"lowered_{name}"
+    fn.__lowered_name__ = name
     fn.__lowered_source__ = source
     fn.__lowered_env__ = env
     fn.__fusion_plan__ = plan
-    fn.__fused_kernels__ = list(fused.values())
+    fn.__fused_kernels__ = kernels
     return fn
+
+
+# ---------------------------------------------------------------------------
+# The durable form of a lowered program (the program cache's executable tier)
+# ---------------------------------------------------------------------------
+
+
+def _prim_names() -> dict[int, str]:
+    """Primitive implementation -> registry name (kernel primitives included)."""
+    import repro_torch.kernels.ops  # noqa: F401  (registers the kernel primitives)
+    from .primitives import PRIMITIVES
+
+    return {id(p.impl): name for name, p in PRIMITIVES.items()}
+
+
+def encode_env(env: dict, prims: dict[int, str] | None = None) -> list:
+    """A generated program's environment as JSON-able entries, in order:
+    primitive implementations by registry name, fused kernels and loop
+    sub-programs by their own payloads, constants by ``serialize``'s value
+    encoding.  Raises :class:`~repro_torch.core.serialize.SerializeError`
+    for anything else (a profiling hook, a runtime-only value)."""
+    from repro_torch.kernels.codegen import FusedKernel
+
+    from .serialize import SerializeError, _enc_value
+
+    prims = _prim_names() if prims is None else prims
+    out = []
+    for name, v in env.items():
+        if name.startswith("_prim_"):
+            pname = prims.get(id(v))
+            if pname is None:
+                raise SerializeError(f"{name} is not a registered primitive's impl")
+            out.append([name, "prim", pname])
+        elif isinstance(v, FusedKernel):
+            out.append([name, "fused", v.payload(prims)])
+        elif hasattr(v, "__lowered_source__"):
+            out.append([name, "program", lowered_payload(v, prims)])
+        elif name.startswith("_const_"):
+            out.append([name, "const", _enc_value(v, {})])
+        else:
+            raise SerializeError(f"environment entry {name} is not durable")
+    return out
+
+
+def decode_env(entries: list) -> dict:
+    """The inverse of :func:`encode_env` (no lowering, no kernel build)."""
+    from repro_torch.kernels.codegen import FusedKernel
+
+    from .serialize import SerializeError, _dec_prim, _dec_value
+
+    env: dict[str, Any] = {}
+    for name, kind, val in entries:
+        if kind == "prim":
+            env[name] = _dec_prim(val).impl
+        elif kind == "fused":
+            env[name] = FusedKernel.from_payload(val)
+        elif kind == "program":
+            env[name] = lowered_from_payload(val)
+        elif kind == "const":
+            env[name] = _dec_value(val, [])
+        else:
+            raise SerializeError(f"unknown environment entry kind {kind!r}")
+    return env
+
+
+def lowered_payload(fn: Callable, prims: dict[int, str] | None = None) -> dict:
+    """What the program cache stores for a lowered callable: the emitted
+    straight-line source and its environment (:func:`encode_env`), the
+    generated Triton sources of its fused clusters among it."""
+    return {
+        "name": fn.__lowered_name__,
+        "source": fn.__lowered_source__,
+        "env": encode_env(fn.__lowered_env__, prims),
+    }
+
+
+def lowered_from_payload(payload: dict) -> Callable:
+    """Rebuild a lowered callable from :func:`lowered_payload`'s output: the
+    stored source runs over the decoded environment.  No optimizer, no
+    ``lower_graph`` and no kernel build: fused kernels come back as their
+    stored sources, and Triton builds (or finds in its cache) each binary at
+    the first launch on the card.  ``__fusion_plan__`` is None on the result
+    (the plan's clusters are graph nodes); ``__fused_kernels__`` holds the
+    program's top-level kernels."""
+    env = decode_env(payload["env"])
+    kernels = [v for k, v in env.items() if k.startswith("_fused_")]
+    return _assemble(payload["name"], payload["source"], env, None, kernels)
 
 
 def _placed(fn: Callable, namespace: dict, env: dict) -> Callable:

@@ -64,7 +64,8 @@ it near-linear now:
 The remaining cold cost is cacheable wholesale: the reference's
 optimized-graph cache tier keys the *pre-opt* graph via the loose
 structural hash (``serialize.structural_hash(g, loose=True)``) and skips
-this module entirely on a warm hit; the port's waits for ROADMAP item A5.
+this module entirely on a warm hit, and so does the port's
+(``torch_backend.ProgramCache.graph_key``).
 """
 
 from __future__ import annotations

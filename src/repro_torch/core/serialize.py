@@ -16,7 +16,7 @@ Python process.  This module makes optimized graphs durable:
   debug names stripped, so it is stable across process runs (node ids,
   dict ordering and clone relabels never leak in) and identical for
   structurally-identical graphs.  This is the first component of the
-  reference's program-cache key (the port's cache is ROADMAP item A5), and
+  program-cache key (``torch_backend.ProgramCache``, as the reference's), and
   the port's structural oracle: a program's hash is the same in both
   packages.
 

@@ -1,9 +1,12 @@
-"""Train-step construction, ported from ``repro.distributed`` for one device.
+"""Train-step and serve-function construction, ported from
+``repro.distributed`` for one device.
 
-``make_train_state_fn`` and ``make_train_step`` close over a ModelConfig and an
-optimizer and build the step functions.  The state is ``{"params", "opt",
-"step"}`` with ``step`` an int32 scalar tensor, as in the reference.  The
-reference's sharded ``jit_*`` wrappers wait for the SPMD slice (ROADMAP.md §A).
+``make_train_state_fn``/``make_train_step`` close over a ModelConfig and an
+optimizer and build the step functions; ``make_serve_fns`` closes over a
+ModelConfig and a cache length and builds the prefill and decode functions.
+The state is ``{"params", "opt", "step"}`` with ``step`` an int32 scalar
+tensor, as in the reference.  The reference's sharded ``jit_*`` wrappers wait
+for the SPMD slice (ROADMAP.md §A).
 """
 
 from __future__ import annotations
@@ -14,10 +17,10 @@ import torch
 
 from repro_torch import tree as T
 from repro_torch.device import resolve_device
-from repro_torch.models import ModelConfig, init_params, loss_fn
+from repro_torch.models import ModelConfig, decode_step, init_params, loss_fn, prefill
 from repro_torch.optim import Optimizer
 
-__all__ = ["make_train_state_fn", "make_train_step"]
+__all__ = ["make_train_state_fn", "make_train_step", "make_serve_fns"]
 
 
 def make_train_state_fn(
@@ -57,3 +60,19 @@ def make_train_step(cfg: ModelConfig, opt: Optimizer, *, impl: str | None = None
         return new_state, {"loss": loss.detach(), **metrics, **opt_metrics}
 
     return train_step
+
+
+def make_serve_fns(cfg: ModelConfig, max_len: int):
+    """``(prefill_fn, decode_fn)``: ``prefill_fn(params, tokens, extras=None)`` →
+    (last-position logits, caches) with caches of length ``max_len``, and
+    ``decode_fn(params, caches, token, pos)`` → (logits, new caches), as the
+    reference's."""
+
+    def prefill_fn(params, tokens, extras=None):
+        return prefill(cfg, params, tokens, max_len, batch_extras=extras)
+
+    def decode_fn(params, caches, token, pos):
+        logits, new_caches = decode_step(cfg, params, token, pos, caches)
+        return logits, new_caches
+
+    return prefill_fn, decode_fn

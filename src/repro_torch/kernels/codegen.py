@@ -52,7 +52,12 @@ The source is plain text, generated without importing ``triton``.  At the
 first launch on a CUDA tensor it is written to
 ``build/repro_torch/triton/<hash>.py`` and imported (``@triton.jit`` reads
 its function's source from the file); Triton's own cache goes to
-``build/repro_torch/triton_cache`` unless ``TRITON_CACHE_DIR`` is set.
+``build/repro_torch/triton_cache`` unless ``TRITON_CACHE_DIR`` is set.  A
+kernel of a program in the program cache (``FusedKernel.binary_dir``) keeps
+its binary in the cache's ``triton`` directory instead, and reports how many
+binaries its first launch built, so a warm process that finds them there
+builds none.  :meth:`FusedKernel.payload` / :meth:`FusedKernel.from_payload`
+are the kernel's durable form: its sources, metadata and environment.
 
 ``emit_cluster`` declines (returns None) exactly the clusters the
 reference's generator declines, with the same ``DeclineReason`` kinds, so
@@ -76,6 +81,7 @@ from repro_torch.core.fusion import Cluster, DeclineReason, classify
 from repro_torch.core.infer import AArray
 from repro_torch.core.ir import Apply, Constant, Node
 from repro_torch.core.lowering import _abstract_nbytes, _literal
+from repro_torch.obs import profile as obs_profile
 from .build import BUILD_DIR, FUSED_LAUNCHES, LAUNCHES
 from .ops import get_kernel_mode
 
@@ -102,6 +108,7 @@ class FusedKernel:
     __slots__ = (
         "name",
         "source",
+        "oracle_source",
         "n_nodes",
         "kind",
         "body_shape",
@@ -109,6 +116,8 @@ class FusedKernel:
         "bytes_moved",
         "oracle",
         "launches_per_call",
+        "binary_dir",
+        "on_build",
         "_env",
         "_launch",
     )
@@ -125,6 +134,7 @@ class FusedKernel:
         env: dict,
         bytes_moved: int = 0,
         launches_per_call: int = 1,
+        oracle_source: str = "",
     ) -> None:
         self.name = name
         self.source = source
@@ -139,19 +149,70 @@ class FusedKernel:
         #: device launches of one call: 1, or 2 for a reduction split over
         #: programs (its partials are combined by a second pass)
         self.launches_per_call = launches_per_call
+        #: the oracle's own source (``source`` ends with it, after the kernel)
+        self.oracle_source = oracle_source
+        #: where Triton keeps this kernel's binary (its cache directory), or
+        #: None for ``TRITON_CACHE_DIR`` / ``build/repro_torch/triton_cache``;
+        #: a program cache points its programs' kernels at its own directory
+        self.binary_dir: str | None = None
+        #: called with the number of binaries Triton built (not found in its
+        #: cache) at this kernel's first launch: the program cache's counter
+        self.on_build: Callable[[int], None] | None = None
         self._env = env
         self._launch: Callable | None = None
 
     def __call__(self, *args: Any) -> Any:
-        if get_kernel_mode() in ("ref", "chunked") or not _on_cuda(args):
-            return self.oracle(*args)
-        return self.triton(*args)
+        fn = (self.oracle if get_kernel_mode() in ("ref", "chunked") or not _on_cuda(args)
+              else self.triton)
+        # runtime profiler hook: disarmed this is one module-global read; armed,
+        # the launch is timed on the card (CUDA events) and attributed per kernel
+        prof = obs_profile._ACTIVE
+        if prof is None:
+            return fn(*args)
+        out, dur = obs_profile.timed(fn, *args)
+        prof.record(self.name, "fused", dur, self.bytes_moved)
+        return out
 
     def triton(self, *args: Any) -> Any:
-        """Launch the generated Triton kernel (CUDA tensors only)."""
+        """Launch the generated Triton kernel (CUDA tensors only).  The first
+        launch is where Triton builds the binary, or loads it from its cache."""
         if self._launch is None:
-            self._launch = _load(self.name, self.kind, self.source, self._env)
+            launch = _load(self.name, self.kind, self.source, self._env)
+            out = _first_launch(launch, args, self.binary_dir, self.on_build)
+            self._launch = launch
+            return out
         return self._launch(*args)
+
+    # -- the durable form (the program cache's executable tier) ---------------
+    def payload(self, prims: dict[int, str] | None = None) -> dict:
+        """Everything needed to rebuild this kernel without the cluster: its
+        generated sources, its metadata and its environment."""
+        from repro_torch.core.lowering import encode_env
+
+        return {
+            "name": self.name, "source": self.source, "oracle_source": self.oracle_source,
+            "n_nodes": self.n_nodes, "kind": self.kind,
+            "body_shape": list(self.body_shape), "out_shape": list(self.out_shape),
+            "bytes_moved": self.bytes_moved, "launches_per_call": self.launches_per_call,
+            "env": encode_env(self._env, prims),
+        }
+
+    @classmethod
+    def from_payload(cls, p: dict) -> "FusedKernel":
+        from repro_torch.core.lowering import decode_env
+
+        env = decode_env(p["env"])
+        namespace = dict(env)
+        exec(compile(p["oracle_source"], f"<myia-fused-oracle:{p['name']}>", "exec"),
+             namespace)
+        oracle = namespace["_oracle"]
+        oracle.__fused_source__ = p["source"]
+        return cls(
+            name=p["name"], source=p["source"], n_nodes=p["n_nodes"], kind=p["kind"],
+            body_shape=tuple(p["body_shape"]), out_shape=tuple(p["out_shape"]),
+            oracle=oracle, env=env, bytes_moved=p["bytes_moved"],
+            launches_per_call=p["launches_per_call"], oracle_source=p["oracle_source"],
+        )
 
     def __repr__(self) -> str:  # pragma: no cover - debugging aid
         return f"<FusedKernel {self.name} {self.kind} n={self.n_nodes}>"
@@ -185,6 +246,37 @@ def _load(name: str, kind: str, source: str, env: dict) -> Callable:
     mod.__dict__.update(env)
     mod._counted = lambda: _count_launch(name, kind)
     return mod._launch
+
+
+def _cubins(root: str) -> int:
+    n = 0
+    for _dirpath, _dirs, files in os.walk(root):
+        n += sum(f.endswith(".cubin") for f in files)
+    return n
+
+
+def _first_launch(launch: Callable, args: tuple, binary_dir: str | None,
+                  on_build: Callable[[int], None] | None) -> Any:
+    """The kernel's first launch, where Triton compiles it or finds its binary
+    in its cache.  With ``binary_dir`` set, Triton's cache is that directory
+    for the extent of the launch, and ``on_build`` receives how many binaries
+    (``.cubin`` files) the launch added to it: 0 when the binary was found."""
+    if binary_dir is None:
+        return launch(*args)
+    os.makedirs(binary_dir, exist_ok=True)
+    before = _cubins(binary_dir)
+    prev = os.environ.get("TRITON_CACHE_DIR")
+    os.environ["TRITON_CACHE_DIR"] = binary_dir
+    try:
+        out = launch(*args)
+    finally:
+        if prev is None:
+            del os.environ["TRITON_CACHE_DIR"]
+        else:
+            os.environ["TRITON_CACHE_DIR"] = prev
+    if on_build is not None:
+        on_build(_cubins(binary_dir) - before)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -663,6 +755,7 @@ def _emit_cluster_impl(cluster: Cluster) -> FusedKernel | DeclineReason:
         env=env,
         bytes_moved=_cluster_bytes(cluster),
         launches_per_call=_launches_per_call(cluster, body_shape),
+        oracle_source=oracle_src,
     )
 
 

@@ -114,3 +114,11 @@ def _index(tree: Any, r: int) -> Any:
     if isinstance(tree, dict):
         return {k: _index(v, r) for k, v in tree.items()}
     return np.asarray(tree)[r]
+
+
+def serve_params_from_jax(params, device: str | torch.device = "cpu") -> tuple:
+    """The port's Myia serving LM parameters from the reference's
+    ``repro.serve.init_serve_params`` 7-tuple ``(emb, wq, wk, wv, w1, w2,
+    wout)``, already numpy: f32 tensors on ``device``."""
+    dev = resolve_device(device)
+    return tuple(_tensor(p, torch.float32, dev) for p in params)

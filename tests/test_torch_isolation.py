@@ -38,6 +38,10 @@ def test_port_files_exist():
     assert "src/repro_torch/core/api.py" in names
     assert "src/repro_torch/kernels/codegen.py" in names
     assert "src/repro_torch/launch/myia_step.py" in names
+    for module in ("core/torch_backend.py", "obs/metrics.py", "obs/profile.py",
+                   "obs/explain.py", "serve/__init__.py", "serve/model.py", "serve/faults.py",
+                   "serve/engine.py"):
+        assert f"src/repro_torch/{module}" in names, module
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: p.relative_to(ROOT).as_posix())
@@ -106,6 +110,32 @@ def test_importing_the_port_loads_no_jax():
         "import repro_torch.runtime, repro_torch.distributed, repro_torch.launch.train\n"
         "import repro_torch.launch.profile_train, repro_torch.launch.profile_serve\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code],
+        cwd=ROOT,
+        env={"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"},
+        capture_output=True,
+        text=True,
+        timeout=240,
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+def test_importing_the_serving_runtime_loads_no_jax_or_triton():
+    """The serving runtime and the observability tier (program cache, metrics,
+    profiler, explain, engine) import neither jax, the reference, nor triton."""
+    code = (
+        "import sys\n"
+        "import repro_torch.serve, repro_torch.serve.engine, repro_torch.serve.faults\n"
+        "import repro_torch.obs.metrics, repro_torch.obs.profile, repro_torch.obs.explain\n"
+        "import repro_torch.core.torch_backend, repro_torch.launch.serve\n"
+        "import repro_torch.launch.profile_serve_myia\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro', 'triton'))\n"
         "assert not bad, bad\n"
         "print('ok')\n"
     )

@@ -558,3 +558,70 @@ def test_k1_lm_step_clusters_on_the_card(cuda):
     np.testing.assert_allclose(f32(loss), f32(loss_o), rtol=1e-5, atol=1e-6)
     for a, b in zip(grads, grads_o):
         np.testing.assert_allclose(f32(a), f32(b), rtol=1e-5, atol=1e-7)
+
+
+# ---------------------------------------------------------------------------
+# The Myia serving runtime and the program cache on the card
+# ---------------------------------------------------------------------------
+
+
+def test_serve_engine_on_the_card_matches_the_cpu(cuda):
+    """The engine at tiny dims, fused: the card's streams equal the CPU's (the
+    oracles) and the card's own full-prefix oracle's."""
+    from repro_torch.serve import ServeEngine, ServeLMDims, init_serve_params, oracle_generate
+
+    dims = ServeLMDims(48, 8, 16)
+    p_cpu = init_serve_params(dims, torch.Generator().manual_seed(0), device="cpu")
+    p_card = tuple(p.to(cuda) for p in p_cpu)
+    rng = np.random.default_rng(0)
+    work = [(rng.integers(0, 48, n).tolist(), m) for n, m in [(5, 6), (9, 4), (3, 8), (20, 6)]]
+    streams = []
+    for params in (p_cpu, p_card):
+        eng = ServeEngine(dims, params, n_slots=2, min_bucket=16, fuse=True)
+        rids = [eng.submit(p, m) for p, m in work]
+        res = eng.run()
+        streams.append([res[r]["tokens"] for r in rids])
+    assert streams[1] == streams[0] == [oracle_generate(dims, p_card, p, m) for p, m in work]
+
+
+_K1_CACHE_SCRIPT = """
+import json, sys
+import torch
+from repro_torch.core import api
+from repro_torch.core.torch_backend import ProgramCache
+from repro_torch.launch.myia_step import MyiaLMDims, build_lm_loss
+
+cache = ProgramCache(sys.argv[1])
+vag = api.value_and_grad(build_lm_loss(MyiaLMDims(96, 16, 40), 2, 8), wrt=(0, 1, 2, 3),
+                         options=api.CompileOptions(fuse=True, program_cache=cache))
+gen = torch.Generator().manual_seed(0)
+args = [(torch.randn(s, generator=gen) * 0.1).cuda()
+        for s in ((96, 16), (16, 40), (40, 16), (16, 96))]
+args += [torch.randint(0, 96, (2, 8), generator=gen, dtype=torch.int32).cuda() for _ in "ab"]
+loss, _grads = vag(*args)
+print(json.dumps({"loss": float(loss), "stats": cache.stats.as_dict()}))
+"""
+
+
+def test_program_cache_finds_k1_binaries_again(cuda, tmp_path):
+    """A fused program through the program cache: the cold process builds one
+    lowering and its clusters' Triton binaries (in ``<cache>/triton``); a warm
+    process finds both and builds nothing, with the same loss."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    src = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "src")
+    env = dict(os.environ, PYTHONPATH=src + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    runs = []
+    for _ in range(2):
+        out = subprocess.run([sys.executable, "-c", _K1_CACHE_SCRIPT, str(tmp_path)],
+                             capture_output=True, text=True, env=env, timeout=600)
+        assert out.returncode == 0, out.stderr[-4000:]
+        runs.append(json.loads(out.stdout.strip().splitlines()[-1]))
+    cold, warm = runs
+    assert cold["stats"]["misses"] == 1 and cold["stats"]["programs_built"] > 1, cold
+    assert warm["stats"]["hits"] == 1 and warm["stats"]["programs_built"] == 0, warm
+    assert warm["loss"] == cold["loss"]
+    assert any(f.endswith(".cubin") for _d, _s, fs in os.walk(tmp_path / "triton") for f in fs)
