@@ -120,7 +120,33 @@ Drives ``repro_torch`` only (never ``repro`` or ``jax``), on one CUDA device:
 28. restarts warm: a second process serves the same requests on phase 27's cache
     directory, unfused and fused, with no miss, no program built (no lowering, no Triton
     build), as many hits as the cold run's misses and identical streams; then profiles
-    one fused decode step (each launch timed by CUDA events) against the H100's 3.35 TB/s.
+    one fused decode step (each launch timed by CUDA events) against the H100's 3.35 TB/s;
+29. the OO tape (``repro_torch.core.oo_tape``, the paper's operator-overloading baseline)
+    on the card: the reference test's scalar chain and polynomials, its MLP pair at (8, 8),
+    (8, 8), (4, 8) and at (4096, 4096), (4096, 4096), (256, 4096), and its relu pair, in
+    f32 on CUDA tensors, against the port's ST gradient (unfused: bitwise; fused, with K1:
+    within 1e-5) and ``torch.autograd``; then the footnote-1 numbers: a call of the tape
+    and of the lowered ST program at the scalar chain and the wide MLP, and the tape's
+    entries a call;
+30. the SPMD tier: the Myia LM step at phase 19's full width under
+    ``mesh_context(make_local_mesh(1, 1))``, an NCCL group of one rank: 3 SGD steps
+    unfused, bitwise equal to the single-device tier (losses and every parameter), and 3
+    fused within the reference's bounds (losses rtol 2e-5, parameters rtol 2e-4, atol
+    1e-6); ``runner.spmd``, and the per-shard K1 launches by name against the per-shard
+    fusion plan the host computes (``spmd.shard_graph``); each per-shard kernel against
+    its oracle on the inputs the first step gave it (phase 17's bounds); the step time
+    beside the single-device tier's;
+31. two ranks sharing the card: ``python -m torch.distributed.run --standalone
+    --nproc-per-node 2`` starts this script's rank program (``--spmd-rank``), which runs
+    ``repro_torch.launch.train``'s ``main`` with ``--compiler myia`` at the same full
+    width on a 2x1 and a 1x2 mesh, over gloo (NCCL refuses two ranks on one device), 3
+    steps each against phase 30's single-device run under its bounds (the losses each
+    rank prints, the parameters of each rank's checkpoint); the parent checks each
+    rank's backend, device, per-shard clusters (against the host's plan and, cluster by
+    cluster, the global plan's kinds and members), K1 launches and step time.  Each rank
+    holds every per-shard kernel against its oracle on the inputs its first step gave
+    it, at the per-shard shapes (phase 17's bounds), and rank 0 runs its last step under
+    ``torch.profiler``: the time in the collectives, the card's busy and idle time.
 
 A failed phase raises and the script exits non-zero.  The last lines are the
 kernels' record, the card's name and power limit, and the device line.
@@ -128,6 +154,7 @@ kernels' record, the card's name and power limit, and the device line.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -311,6 +338,72 @@ print(json.dumps({
     "k1_probe": k1_probe(sys.argv[2]),
 }))
 """
+
+# The OO tape on the card (phase 29), the paper's OO baseline against its ST pipeline.
+# Array workloads: the tape and the unfused lowered adjoint run the same eager torch ops
+# in the same dataflow (bitwise equal on the CPU, tests/test_torch_oo_tape.py), so they
+# must be bitwise equal on the card too.  Against the fused adjoint (K1's map kernels,
+# within an ulp of their oracles) and torch.autograd (its own tanh and relu backward
+# kernels), the largest gradient difference within 1e-5 of the largest gradient element.
+# Scalars: Python floats on the tape (float64) against f32 ST programs, rtol 1e-5 as the
+# reference's test; the scalar chain as 0-d CUDA f32 tensors against the ST program on
+# the same tensors, rtol 1e-5 (the adjoint may add a value's contributions in another
+# order than the tape).
+OO_REL = 1e-5
+# the MLP pair's shapes (w1, w2, x): the reference test's, and one wide enough that the
+# card does real work; weights scaled by 1/sqrt(fan-in) so that tanh does not saturate
+OO_MLP_SHAPES = (((8, 8), (8, 8), (4, 8)), ((4096, 4096), (4096, 4096), (256, 4096)))
+OO_RELU_SHAPES = ((8, 4), (5, 8))
+# The SPMD tier (phases 30-31): the Myia LM step at phase 19's full width on a mesh.
+# Unfused on a 1x1 mesh: bitwise equal to the single-device tier (psum over one rank is
+# the identity; the reference pins this identity in TestMesh1x1Identity).  Otherwise the
+# reference's bounds (tests/distributed/test_spmd_exec.py): losses rtol 2e-5, parameters
+# rtol 2e-4 and atol 1e-6, after SPMD_STEPS SGD steps.
+SPMD_LOSS_RTOL, SPMD_PARAM_RTOL, SPMD_PARAM_ATOL = 2e-5, 2e-4, 1e-6
+SPMD_STEPS = 3
+
+
+def oo_scalar_chain(x, y):
+    """The paper's footnote-1 pathology: an unrolled scalar recurrence."""
+    z = x
+    z = z * y + x
+    z = z * z + y
+    z = z * y + x
+    z = z * z + y
+    z = z * y + x
+    z = z * z + y
+    return z
+
+
+def oo_poly(x):
+    return 2.0 * x * x * x + 4.0 * x * x + x + 1.0
+
+
+def oo_cube(x):
+    return x * x * x
+
+
+def oo_mlp_pair(oo, P):
+    def oo_loss(w1, w2, x):
+        h = oo.tanh(x @ w1)
+        return oo.reduce_sum(oo.tanh(h @ w2))
+
+    def st_loss(w1, w2, x):
+        h = P.tanh(x @ w1)
+        return P.reduce_sum(P.tanh(h @ w2), (0, 1), False)
+
+    return oo_loss, st_loss
+
+
+def oo_relu_pair(oo, P):
+    def oo_loss(w, x):
+        return oo.reduce_sum(oo.relu(x @ w))
+
+    def st_loss(w, x):
+        return P.reduce_sum(P.relu(x @ w), (0, 1), False)
+
+    return oo_loss, st_loss
+
 
 # (B, H, KVH, Sq, Skv, D, causal): K4's calls on this slice's paths, at the serving
 # batch (phase 21): whisper's encoder self-attention (non-causal), its decoder's
@@ -534,17 +627,18 @@ def k1_library_call(torch, members: list, operands: tuple, want):
     return None  # ["sub", "mul", "reduce_sum"]: sum(onehot * (logits - lse))
 
 
-def myia_phases(torch, dev, records, card: str) -> tuple[dict, dict]:
+def myia_phases(torch, dev, records, card: str) -> tuple[dict, dict, dict]:
     """Phases 17-20: K1 against its oracles, and the Myia-compiled LM step from
     tiny dims to full width.  Adds one K1 record per cluster of the main path to
     ``records`` and returns the launch counts of the main path's timed steps, by
-    counter and by generated kernel."""
+    counter and by generated kernel, and the step's median time and its kernels'
+    names in plan order."""
     import numpy as np
 
     from repro_torch.configs import get_config
     from repro_torch.data import DataConfig, SyntheticLM, to_device
     from repro_torch.kernels import (
-        FUSED_LAUNCHES, LAUNCHES, codegen, k1_cases, reset_launches, set_kernel_mode,
+        FUSED_LAUNCHES, LAUNCHES, k1_cases, reset_launches, set_kernel_mode,
     )
     from repro_torch.launch import train as train_cli
     from repro_torch.launch.myia_step import MyiaLMDims, make_myia_train_step
@@ -647,20 +741,11 @@ def myia_phases(torch, dev, records, card: str) -> tuple[dict, dict]:
     assert sorted(kinds) == ["map", "map", "map", "reduce"], kinds
     # the first step, with the cluster inputs captured for the full-shape checks
     captured = {}
-    call = codegen.FusedKernel.__call__
-
-    def capture(self, *a):
-        captured[self.name] = (self, a)
-        return call(self, *a)
-
-    codegen.FusedKernel.__call__ = capture
-    try:
+    with capturing_k1(captured):
         t0 = time.monotonic()
         state, m = step_fn(state, batch)
         losses = [float(m["loss"])]
         t_first = time.monotonic() - t0
-    finally:
-        codegen.FusedKernel.__call__ = call
     say(f"[train-myia] first call: pipeline (parse, AD, infer, optimize, fuse, lower) "
         f"{t_pipeline:.2f}s; first step with the Triton builds {t_first:.2f}s")
     step_s, per_step = [], []
@@ -762,7 +847,8 @@ def myia_phases(torch, dev, records, card: str) -> tuple[dict, dict]:
     assert rel <= MYIA_REF_LOSS_REL and max(grels) <= MYIA_REF_GRAD_REL, (rel, grels)
     del state, grads_k, grads_r, args
     torch.cuda.empty_cache()
-    return counts, fused_counts
+    return counts, fused_counts, {"step_s": med, "names": [k.name for k in fused],
+                                  "clusters": [(k.kind, members[k.name]) for k in fused]}
 
 
 def widen_in_place(tree):
@@ -1180,6 +1266,443 @@ def serve_myia_phases(torch, dev, card: str) -> dict:
     torch.cuda.empty_cache()
     return {"serve_myia": unfused_counts, "serve_myia_fused": fused_counts,
             "fused": fused_by_name}
+
+
+def oo_tape_phase(torch, dev, card: str) -> None:
+    """Phase 29: the OO tape (``repro_torch.core.oo_tape``) on CUDA tensors against the
+    port's ST gradient (unfused and fused) and torch.autograd; then the footnote-1
+    numbers: time a call of the tape and of the lowered ST program, at a scalar and an
+    array workload, and the tape's entries a call."""
+    import repro_torch.core.primitives as P
+    from repro_torch.core import api
+    from repro_torch.core import oo_tape as oo
+    from repro_torch.kernels import LAUNCHES
+
+    def st_grad(fn, wrt, fuse):
+        return api.value_and_grad(fn, wrt=wrt, options=api.CompileOptions(fuse=fuse))
+
+    def rel(got, want):
+        return ((got - want).abs().max() / want.abs().max().clamp_min(1e-30)).item()
+
+    # scalars: Python floats (the reference's test) and 0-d CUDA f32 tensors
+    worst = 0.0
+    for fn, args in ((oo_scalar_chain, (0.3, 0.7)), (oo_scalar_chain, (1.5, -0.2)),
+                     (oo_scalar_chain, (-0.9, 0.1)), (oo_poly, (1.3,)), (oo_poly, (-0.4,)),
+                     (oo_cube, (2.0,))):
+        wrt = tuple(range(len(args)))
+        got = oo.oo_grad(fn, wrt=wrt)(*args)
+        assert all(isinstance(g, float) for g in got), got
+        ins = [torch.tensor(a, dtype=torch.float64, device=dev, requires_grad=True)
+               for a in args]
+        auto = torch.autograd.grad(fn(*ins), ins)
+        cuda_args = tuple(torch.tensor(a, dtype=torch.float32, device=dev) for a in args)
+        oo_cuda = oo.oo_grad(fn, wrt=wrt)(*cuda_args)
+        for fuse in (False, True):
+            st = st_grad(fn, wrt, fuse)(*cuda_args)[1]
+            for g, s_, o in zip(got, st, oo_cuda):
+                assert o.is_cuda and s_.is_cuda, (o.device, s_.device)
+                worst = max(worst, abs(g - float(s_)) / abs(g), abs(float(o) - float(s_)) / abs(g))
+        for g, a in zip(got, auto):
+            worst = max(worst, abs(g - float(a)) / abs(g))
+    say(f"[oo-tape] scalar chain and polynomials: the tape's float64 gradients against the "
+        f"port's ST gradient of 0-d CUDA f32 tensors (unfused, fused), the tape on those "
+        f"tensors and torch.autograd in float64 on the card: worst relative difference "
+        f"{worst:.2e} (bound {OO_REL})")
+    assert worst <= OO_REL, worst
+
+    # arrays: the MLP pair at the reference's shapes and a wide one, the relu pair
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def arrays(shapes):
+        out = []
+        for i, s in enumerate(shapes):
+            t = torch.randn(s, generator=gen, device=dev)
+            out.append(t / s[0] ** 0.5 if i < len(shapes) - 1 else t)
+        return tuple(out)
+
+    cases = [("mlp", oo_mlp_pair, shp, (0, 1)) for shp in OO_MLP_SHAPES]
+    cases.append(("relu", oo_relu_pair, OO_RELU_SHAPES, (0,)))
+    for label, pair, shapes, wrt in cases:
+        oo_loss, st_loss = pair(oo, P)
+        args = arrays(shapes)
+        ov, og = oo.oo_value_and_grad(oo_loss, wrt=wrt)(*args)
+        for fuse in (False, True):
+            vag = st_grad(st_loss, wrt, fuse)
+            before = LAUNCHES["fused_map"] + LAUNCHES["fused_reduce"]
+            sv, sg = vag(*args)
+            torch.cuda.synchronize()
+            k1 = LAUNCHES["fused_map"] + LAUNCHES["fused_reduce"] - before
+            if fuse:
+                errs = [rel(o, s_) for o, s_ in zip(og, sg)]
+                assert k1 > 0 and max(errs) <= OO_REL, (label, shapes, k1, errs)
+                say(f"[oo-tape] {label} {shapes} f32: tape vs fused ST ({k1} K1 launches): "
+                    f"gradients within {max(errs):.2e} of their largest element, loss "
+                    f"{rel(ov, sv):.2e} (bound {OO_REL})")
+            else:
+                assert torch.equal(ov, sv) and all(
+                    torch.equal(o, s_) for o, s_ in zip(og, sg)), (label, shapes)
+                say(f"[oo-tape] {label} {shapes} f32: tape vs unfused ST: bitwise equal, "
+                    f"loss and {len(og)} gradient(s)")
+        ins = [a.clone().requires_grad_(i in wrt) for i, a in enumerate(args)]
+        twin = (torch.sum(torch.tanh(torch.tanh(ins[-1] @ ins[0]) @ ins[1])) if label == "mlp"
+                else torch.sum(torch.relu(ins[-1] @ ins[0])))
+        auto = torch.autograd.grad(twin, [ins[i] for i in wrt])
+        errs = [rel(o, a) for o, a in zip(og, auto)]
+        assert max(errs) <= OO_REL, (label, shapes, errs)
+        say(f"[oo-tape] {label} {shapes}: tape vs torch.autograd: gradients within "
+            f"{max(errs):.2e} of their largest element (bound {OO_REL})")
+
+    # footnote 1: what a call costs, traced anew at every call against ahead of time
+    def per_call_us(fn, args, calls):
+        fn(*args)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn(*args)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / calls * 1e6
+
+    vag_s = oo.oo_value_and_grad(oo_scalar_chain, wrt=(0, 1))
+    tape_s = per_call_us(vag_s, (0.3, 0.7), 2000)
+    st_s = st_grad(oo_scalar_chain, (0, 1), False)
+    st_us = per_call_us(st_s, (0.3, 0.7), 2000)
+    say(f"[oo-tape] {card}: scalar chain (Python floats), {vag_s.tape_entries} tape entries a "
+        f"call: tape {tape_s:.1f} us a call, lowered ST program {st_us:.1f} us a call "
+        f"({tape_s / st_us:.2f}x)")
+    oo_loss, st_loss = oo_mlp_pair(oo, P)
+    args = arrays(OO_MLP_SHAPES[1])
+    vag_a = oo.oo_value_and_grad(oo_loss, wrt=(0, 1))
+    tape_a = per_call_us(vag_a, args, 50)
+    st_a = {fuse: per_call_us(st_grad(st_loss, (0, 1), fuse), args, 50) for fuse in (False, True)}
+    say(f"[oo-tape] {card}: MLP {OO_MLP_SHAPES[1]} f32 on the card, {vag_a.tape_entries} "
+        f"tape entries a call: tape {tape_a / 1e3:.4f} ms a call, lowered ST program "
+        f"{st_a[False] / 1e3:.4f} ms unfused, {st_a[True] / 1e3:.4f} ms fused")
+
+
+def cpu_plan(graph, axes, in_specs):
+    """The per-shard fusion plan the host computes for the optimized global ``graph``
+    on a mesh of ``axes``: (kind, body shape, members, launches a call, bytes) per
+    cluster, in plan order (graph logic only: nothing runs on the card)."""
+    from repro_torch.core import lower_graph, spmd
+
+    fn = lower_graph(spmd.shard_graph(graph, in_specs, axes).graph, fuse=True)
+    return [(k.kind, tuple(k.body_shape), [n.fn.value.name for n in c.order],
+             k.launches_per_call, k.bytes_moved)
+            for c, k in zip(fn.__fusion_plan__.clusters, fn.__fused_kernels__)]
+
+
+@contextlib.contextmanager
+def capturing_k1(captured: dict):
+    """Within it, each generated K1 kernel's first call keeps its inputs in
+    ``captured`` (name -> (kernel, args)), for :func:`check_k1`."""
+    from repro_torch.kernels import codegen
+
+    call = codegen.FusedKernel.__call__
+
+    def capture(self, *a):
+        captured.setdefault(self.name, (self, a))
+        return call(self, *a)
+
+    codegen.FusedKernel.__call__ = capture
+    try:
+        yield captured
+    finally:
+        codegen.FusedKernel.__call__ = call
+
+
+def check_k1(torch, captured: dict) -> dict:
+    """Each captured K1 kernel against its oracle on the inputs the path gave it, at
+    phase 17's bounds (a map within an ulp, the reduce within REDUCE_TOL):
+    name -> [max_abs_err, ulps (None for the reduce)]."""
+    from repro_torch.kernels import k1_cases
+
+    out = {}
+    for name, (k, a) in sorted(captured.items()):
+        got, want = k.triton(*a), k.oracle(*a)
+        torch.cuda.synchronize()
+        if k.kind == "map":
+            u = k1_cases.ulps(got, want)
+            assert u <= 1, (name, k.body_shape, u)
+        else:
+            torch.testing.assert_close(got, want, **k1_cases.REDUCE_TOL["float32"])
+            u = None
+        out[name] = [(got - want).abs().max().item(), u]
+    return out
+
+
+def trace_summary(torch, prof, wall_s: float) -> dict:
+    """One step under ``torch.profiler``: its wall time; the host time of its
+    collectives (the ``repro.*`` ranges the port's collectives run under, each
+    from the call to its return); the card's busy time (the union of its kernels'
+    and copies' spans), copies and idle share; the heaviest rows on the card and
+    on the host (self time).  The card's rows leave out the profiler's mirrors of
+    host ranges (``repro.*``, ``gloo:*``), which are no work on the card."""
+    cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
+    events = prof.events()
+    host_names = {e.name for e in events if e.device_type == cpu}
+    coll, dev_ms, spans = {}, {}, []
+    for e in events:
+        ms = e.time_range.elapsed_us() / 1e3
+        if e.device_type == cpu and e.name.startswith("repro.all_"):
+            n, t = coll.get(e.name, (0, 0.0))
+            coll[e.name] = (n + 1, t + ms)
+        elif e.device_type == cuda and e.name not in host_names:
+            n, t = dev_ms.get(e.name, (0, 0.0))
+            dev_ms[e.name] = (n + 1, t + ms)
+            spans.append((e.time_range.start, e.time_range.end))
+    busy, end = 0.0, None
+    for a, b in sorted(spans):
+        if end is None or a > end:
+            busy, end = busy + (b - a), b
+        elif b > end:
+            busy, end = busy + (b - end), b
+    busy /= 1e3
+    dev = sorted(((t, n, k) for k, (n, t) in dev_ms.items()), reverse=True)
+    host = sorted(((e.self_cpu_time_total / 1e3, e.count, e.key) for e in prof.key_averages()
+                   if e.device_type == cpu and e.self_cpu_time_total > 0), reverse=True)
+    wall_ms = wall_s * 1e3
+    coll_ms = sum(ms for _n, ms in coll.values())
+    return {"wall_ms": wall_ms, "collective_ms": coll_ms, "collective_share": coll_ms / wall_ms,
+            "collectives": {k: [n, round(ms, 3)] for k, (n, ms) in sorted(coll.items())},
+            "device_busy_ms": busy, "device_idle_share": max(0.0, 1 - busy / wall_ms),
+            "memcpy_ms": sum(ms for ms, _n, k in dev if "memcpy" in k.lower()),
+            "top_device": [[round(ms, 3), n, k[:70]] for ms, n, k in dev[:6]],
+            "top_host": [[round(ms, 3), n, k[:70]] for ms, n, k in host[:6]]}
+
+
+def spmd_rank(argv_json: str, traced: int) -> int:
+    """Phase 31's rank program, started from this script by ``torch.distributed.run``:
+    ``repro_torch.launch.train``'s ``main`` with the parent's flags, each K1 kernel's
+    first call captured and, after the run, held against its oracle at the per-shard
+    shapes; rank 0 runs step ``traced`` under ``torch.profiler``.  Prints one
+    ``SPMD_CHECK`` JSON line after the launcher's own."""
+    import os
+
+    import torch
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    from repro_torch.launch import train as train_cli
+    from repro_torch.launch.mesh import line_out
+
+    rank, trace, loop = int(os.environ["RANK"]), {}, train_cli.train_loop
+
+    def traced_loop(cfg, step_fn, *a, **kw):
+        calls = [0]
+
+        def step(state, batch):
+            calls[0] += 1
+            if rank != 0 or calls[0] != traced:
+                return step_fn(state, batch)
+            acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+            torch.cuda.synchronize()
+            with torch.profiler.profile(activities=acts) as prof:
+                t0 = time.monotonic()
+                out = step_fn(state, batch)
+                torch.cuda.synchronize()
+                wall = time.monotonic() - t0
+            trace.update(trace_summary(torch, prof, wall))
+            return out
+
+        return loop(cfg, step, *a, **kw)
+
+    captured = {}
+    train_cli.train_loop = traced_loop
+    try:
+        with capturing_k1(captured):
+            rc = train_cli.main(json.loads(argv_json))
+    finally:
+        train_cli.train_loop = loop
+    line_out("SPMD_CHECK " + json.dumps({"rank": rank, "k1": check_k1(torch, captured),
+                                         "trace": trace}))
+    return rc
+
+
+def spmd_phases(torch, dev, card: str, myia: dict) -> dict:
+    """Phases 30-31: the Myia LM step at full width on a mesh, a 1x1 mesh over NCCL in
+    this process, then 2x1 and 1x2 meshes of two ranks sharing the card over gloo,
+    through ``python -m torch.distributed.run -m repro_torch.launch.train``.  Returns,
+    per path, the K1 launches of each cluster by its position in the plan, and the
+    per-shard clusters with their byte bounds."""
+    import os
+
+    import torch.distributed as dist
+
+    from repro_torch.checkpoint import restore
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLM, to_device
+    from repro_torch.kernels import FUSED_LAUNCHES, LAUNCHES, reset_launches
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.launch.myia_step import MyiaLMDims, lm_in_specs, make_myia_train_step
+    from repro_torch.parallel import mesh_context
+
+    cfg = get_config("internlm2-1.8b")
+    dims = MyiaLMDims.from_config(cfg)
+    ds = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=MYIA_S, global_batch=MYIA_B))
+    batches = [to_device(ds.batch(s), dev) for s in range(SPMD_STEPS)]
+
+    def run(fuse, mesh, captured=None):
+        step_fn, init_fn = make_myia_train_step(dims, MYIA_B, MYIA_S, MYIA_LR, fuse=fuse,
+                                                device=dev)
+        state = init_fn()
+        losses, times = [], []
+        reset_launches()
+        with mesh_context(mesh, {}), (contextlib.nullcontext() if captured is None
+                                      else capturing_k1(captured)):
+            for b in batches:
+                torch.cuda.synchronize()
+                t0 = time.monotonic()
+                state, m = step_fn(state, b)
+                losses.append(float(m["loss"]))
+                torch.cuda.synchronize()
+                times.append(time.monotonic() - t0)
+            args = (*state["params"], b["tokens"], b["labels"])
+            runner = step_fn.vag.specialize(args)
+        return {"losses": losses, "params": state["params"], "times": times, "runner": runner,
+                "launches": dict(LAUNCHES), "fused": dict(FUSED_LAUNCHES), "vag": step_fn.vag,
+                "args": args}
+
+    def within(got_params, want_params):
+        """Largest |got - want| over atol + rtol |want|, over every parameter."""
+        return max(((g - w).abs() / (SPMD_PARAM_ATOL + SPMD_PARAM_RTOL * w.abs())).max().item()
+                   for g, w in zip(got_params, want_params))
+
+    def loss_rel(got, want):
+        return max(abs(a - b) / abs(b) for a, b in zip(got, want))
+
+    def check_plan(label, kernels, plan_cpu, fused_counts):
+        got = [(k.kind, tuple(k.body_shape), k.launches_per_call) for k in kernels]
+        assert got == [(k, b, n) for k, b, _m, n, _by in plan_cpu], (label, got, plan_cpu)
+        want = {k.name: SPMD_STEPS * k.launches_per_call for k in kernels}
+        assert fused_counts == want, (label, fused_counts, want)
+        return [fused_counts[k.name] for k in kernels]
+
+    out = {}
+    # -- 30. a 1x1 mesh through NCCL at full width ------------------------------------
+    t_phase = time.monotonic()
+    mesh = make_local_mesh(1, 1)
+    assert dist.get_backend() == "nccl", dist.get_backend()
+    try:
+        single_u, mesh_u = run(False, None), run(False, mesh)
+        assert not getattr(single_u["runner"], "spmd", False) and mesh_u["runner"].spmd
+        assert mesh_u["losses"] == single_u["losses"], (mesh_u["losses"], single_u["losses"])
+        assert all(torch.equal(a, b) for a, b in zip(mesh_u["params"], single_u["params"]))
+        say(f"[spmd-1x1] unfused, {SPMD_STEPS} SGD steps at V {dims.vocab} D {dims.d_model} "
+            f"H {dims.d_hidden}, batch {MYIA_B} x {MYIA_S}, f32: on a 1x1 mesh over NCCL "
+            f"(runner.spmd {mesh_u['runner'].spmd}, per-shard collectives "
+            f"{mesh_u['runner'].sharded.stats}) losses {mesh_u['losses']} and every parameter "
+            f"bitwise equal to the single-device tier")
+        del single_u, mesh_u
+        torch.cuda.empty_cache()
+        single_f = run(True, None)
+        captured = {}
+        mesh_f = run(True, mesh, captured)
+    finally:
+        dist.destroy_process_group()
+    assert mesh_f["runner"].spmd
+    # each per-shard kernel against its oracle on the inputs the first step gave it
+    checked = check_k1(torch, captured)
+    del captured
+    lrel, prel = loss_rel(mesh_f["losses"], single_f["losses"]), within(
+        mesh_f["params"], single_f["params"])
+    assert lrel <= SPMD_LOSS_RTOL and prel <= 1.0, (lrel, prel)
+    g_global = mesh_f["vag"].optimized_graph(*mesh_f["args"])
+    plan_1x1 = cpu_plan(g_global, {"data": 1, "model": 1}, lm_in_specs())
+    names_1x1 = [k.name for k in mesh_f["runner"].fn.__fused_kernels__]
+    assert sorted(checked) == sorted(names_1x1), (checked, names_1x1)
+    out["train_myia_spmd_1x1"] = {
+        "launches": check_plan("1x1", mesh_f["runner"].fn.__fused_kernels__, plan_1x1,
+                               mesh_f["fused"]),
+        "plan": plan_1x1, "errs": [checked[n] for n in names_1x1]}
+    med = statistics.median(mesh_f["times"][1:])
+    med_single = statistics.median(single_f["times"][1:])
+    say(f"[spmd-1x1] fused: losses within {lrel:.2e} (rtol {SPMD_LOSS_RTOL}), parameters at "
+        f"{prel:.3f} of their bound (rtol {SPMD_PARAM_RTOL}, atol {SPMD_PARAM_ATOL}); "
+        f"per-shard clusters {[(k, b, m) for k, b, m, _n, _by in plan_1x1]} as the host's "
+        f"plan, K1 launches by name {mesh_f['fused']} ({SPMD_STEPS} steps); each per-shard "
+        f"kernel against its oracle on the first step's inputs, [max_abs_err, ulps] in plan "
+        f"order {out['train_myia_spmd_1x1']['errs']}")
+    say(f"[spmd-1x1] {card}: step {med:.4f}s on the 1x1 mesh against {med_single:.4f}s on "
+        f"the single-device tier in this phase and {myia['step_s']:.4f}s in phase 19 "
+        f"(median of the steps after the first); phase {time.monotonic() - t_phase:.1f}s")
+    want_losses, want_params = single_f["losses"], single_f["params"]
+    del mesh_f, single_f
+    torch.cuda.empty_cache()
+
+    # -- 31. two ranks sharing the card, over gloo --------------------------------------
+    src = str(Path(__file__).resolve().parent / "src")
+    env = dict(os.environ, PYTHONPATH=src + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    for data, model in ((2, 1), (1, 2)):
+        t_phase = time.monotonic()
+        with tempfile.TemporaryDirectory() as ck:
+            flags = ["--compiler", "myia", "--data-mesh", str(data), "--model-mesh",
+                     str(model), "--steps", str(SPMD_STEPS), "--batch", str(MYIA_B), "--seq",
+                     str(MYIA_S), "--lr", str(MYIA_LR), "--ckpt-every", "1000", "--ckpt-dir", ck]
+            cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+                   "--nproc-per-node", "2", str(Path(__file__).resolve()), "--spmd-rank",
+                   json.dumps(flags), str(SPMD_STEPS)]
+            res = subprocess.run(cmd, capture_output=True, text=True, env=env, timeout=420)
+            for line in res.stdout.splitlines():
+                if line.startswith("[myia/spmd"):
+                    say(f"[spmd-{data}x{model}] {line}")
+            assert res.returncode == 0, res.stderr[-6000:]
+            reports = sorted((json.loads(line.split(" ", 1)[1]) for line in
+                              res.stdout.splitlines() if line.startswith("SPMD_RANK ")),
+                             key=lambda r: r["rank"])
+            assert [r["rank"] for r in reports] == [0, 1], res.stdout[-3000:]
+            checks = sorted((json.loads(line.split(" ", 1)[1]) for line in
+                             res.stdout.splitlines() if line.startswith("SPMD_CHECK ")),
+                            key=lambda r: r["rank"])
+            assert [c["rank"] for c in checks] == [0, 1], res.stdout[-3000:]
+            target = {"params": want_params,
+                      "step": torch.zeros((), dtype=torch.int32, device=dev)}
+            prels = [within(restore(os.path.join(ck, f"rank{r}"), target=target)[1]["params"],
+                            want_params) for r in (0, 1)]
+        axes = {"data": data, "model": model}
+        # the host's plan: phase 30's optimized global graph, sharded for this mesh
+        plan = cpu_plan(g_global, axes, lm_in_specs())
+        launches, errs = None, []
+        for r, c in zip(reports, checks):
+            assert r["backend"] == "gloo" and r["device"].startswith("cuda"), r
+            assert r["steps"] == SPMD_STEPS and r["restarts"] == 0, r
+            assert len(r["step_s"]) == SPMD_STEPS and all(
+                0 < t < 120 for t in r["step_s"]), r["step_s"]
+            got = [(k, tuple(b), m) for k, b, m in r["clusters"]]
+            assert got == [(k, b, m) for k, b, m, _n, _by in plan], (got, plan)
+            per_call = list(r["launches_per_call"].values())
+            assert per_call == [n for _k, _b, _m, n, _by in plan], per_call
+            counts = [r["fused_launches"][name] for name in r["launches_per_call"]]
+            assert counts == [SPMD_STEPS * n for n in per_call], counts
+            assert r["launches"]["fused_map"] + r["launches"]["fused_reduce"] == sum(counts)
+            launches = counts
+            # every per-shard kernel was held against its oracle on this rank's inputs
+            assert sorted(c["k1"]) == sorted(r["launches_per_call"]), (c["k1"], r)
+            errs.append([c["k1"][name] for name in r["launches_per_call"]])
+        lrel = max(loss_rel(r["losses"], want_losses) for r in reports)
+        assert lrel <= SPMD_LOSS_RTOL and max(prels) <= 1.0, (lrel, prels)
+        # the worse of the two ranks, cluster by cluster
+        errs = [[max(e[0] for e in per), None if per[0][1] is None else max(e[1] for e in per)]
+                for per in zip(*errs)]
+        trace = checks[0]["trace"]
+        assert trace["wall_ms"] > 0 and trace["collectives"] and trace["device_busy_ms"] > 0, \
+            trace
+        out[f"train_myia_spmd_{data}x{model}"] = {"launches": launches, "plan": plan,
+                                                  "errs": errs, "trace": trace}
+        say(f"[spmd-{data}x{model}] {card}: {SPMD_STEPS} steps on two ranks over gloo: runner.spmd "
+            f"on both; per-shard clusters {[(k, b) for k, b, _m, _n, _by in plan]} as the host's "
+            f"plan; K1 launches {launches}; losses within {lrel:.2e} of the single-device run "
+            f"(rtol {SPMD_LOSS_RTOL}), parameters at {max(prels):.3f} of their bound; step "
+            f"{[round(statistics.median(r['step_s'][1:-1]), 4) for r in reports]}s a rank "
+            f"(the steps between the first and the profiled last); phase "
+            f"{time.monotonic() - t_phase:.1f}s")
+        say(f"[spmd-{data}x{model}] each per-shard kernel against its oracle on each rank's "
+            f"first-step inputs, [max_abs_err, ulps] in plan order, the worse rank: {errs}")
+        say(f"[spmd-{data}x{model}] {card}: rank 0's step {SPMD_STEPS} under torch.profiler: "
+            f"wall {trace['wall_ms']:.1f} ms; collectives {trace['collective_ms']:.1f} ms "
+            f"({trace['collective_share']:.1%}) {trace['collectives']} [calls, ms]; card busy "
+            f"{trace['device_busy_ms']:.1f} ms (idle {trace['device_idle_share']:.1%}), copies "
+            f"{trace['memcpy_ms']:.1f} ms; heaviest on the card [ms, calls, name] "
+            f"{trace['top_device']}; on the host (self) {trace['top_host']}")
+    return out
 
 
 def main() -> int:
@@ -2023,7 +2546,7 @@ def main() -> int:
         f"the stepwise recurrence within {SSD_TOL}")
 
     # -- 17-20. K1 and the Myia-compiled train step -------------------------------
-    myia_counts, myia_fused = myia_phases(torch, dev, records, f"{name} ({smi})")
+    myia_counts, myia_fused, myia_info = myia_phases(torch, dev, records, f"{name} ({smi})")
 
     # -- 21. K4, K2 and K5 at this slice's shapes ---------------------------------
     def fa_xattn_case(label, q, k, v, causal):
@@ -2096,6 +2619,23 @@ def main() -> int:
     serve_myia_counts = serve_myia_phases(torch, dev, f"{name} ({smi})")
     serve_myia_fused = serve_myia_counts.pop("fused")
 
+    # -- 29. the OO tape on the card ----------------------------------------------------
+    oo_tape_phase(torch, dev, f"{name} ({smi})")
+
+    # -- 30-31. the SPMD tier: the Myia LM step on meshes at full width ------------------
+    spmd_paths = spmd_phases(torch, dev, f"{name} ({smi})", myia_info)
+    for path, info in spmd_paths.items():
+        # a per-shard cluster stands beside the global one at its position in the plan
+        got = [(kind, members) for kind, _b, members, _n, _by in info["plan"]]
+        assert got == myia_info["clusters"], (path, got, myia_info["clusters"])
+        assert len(info["launches"]) == len(info["errs"]) == len(got), (path, info)
+        for kname, n, (err, u), (kind, body, members, per_call, nbytes) in zip(
+                myia_info["names"], info["launches"], info["errs"], info["plan"]):
+            records[kname].setdefault("per_shard", []).append({
+                "path": path, "kind": kind, "body_shape": list(body), "members": members,
+                "launches": n, "launches_per_call": per_call, "max_abs_err": err, "ulps": u,
+                "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes"})
+
     # -- records ---------------------------------------------------------------
     # times at the training shapes (K2, K3, K4) and the mamba2 serving shape (K5);
     # launches over the main path of each kernel's own slice (the 20 timed training
@@ -2107,6 +2647,12 @@ def main() -> int:
         """A kernel's launches on one path: K2-K5 by their counters, K1's generated
         kernels by name (none of them runs off the Myia path)."""
         return counts[rec["name"]] if rec["name"] in counts else fused.get(rec["name"], 0)
+    def spmd_launches(path, rec):
+        """K1's launches on a sharded path: the per-shard cluster at this record's
+        position in the plan (its generated name differs in each process)."""
+        names = myia_info["names"]
+        return spmd_paths[path]["launches"][names.index(rec["name"])] if rec["name"] in names \
+            else 0
     kernels_line = [
         {**{key: rec[key] for key in ("name", "route", "source", "replaces", "launches",
                                       "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -2122,8 +2668,9 @@ def main() -> int:
                                                         rec),
                               "serve_myia_fused": launches_on(
                                   serve_myia_counts["serve_myia_fused"], serve_myia_fused,
-                                  rec)},
-         **({"at_shapes": rec["at_shapes"]} if "at_shapes" in rec else {})}
+                                  rec),
+                              **{path: spmd_launches(path, rec) for path in spmd_paths}},
+         **({key: rec[key] for key in ("at_shapes", "per_shard") if key in rec})}
         for rec in records.values()
     ]
     say(f"[done] every phase passed in {time.monotonic() - t_start:.1f}s, the kernels' build "
@@ -2136,4 +2683,5 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(spmd_rank(sys.argv[2], int(sys.argv[3])) if sys.argv[1:2] == ["--spmd-rank"]
+             else main())

@@ -10,8 +10,10 @@ optimized encodings, structural hashes, optimizer rule hits, abstracts,
 fusion plans) are equal to the reference's, and programs execute eagerly
 in torch, with fused clusters as generated Triton kernels on the card.
 Built programs persist in the two-tier program cache
-(``torch_backend.ProgramCache``).  The SPMD tier (ROADMAP item A9) and the
-OO tape (A8) wait for later slices."""
+(``torch_backend.ProgramCache``).  The SPMD tier (``spmd``,
+``torch_backend.compile_graph_spmd``) runs per-shard programs on the ranks of a
+``torch.distributed`` mesh; ``oo_tape`` is the paper's operator-overloading
+baseline."""
 
 from . import primitives as P  # noqa: F401
 from .ad import J, build_grad_graph, build_value_and_grad_graph, build_vjp_graph  # noqa: F401
@@ -45,7 +47,10 @@ from .torch_backend import (  # noqa: F401
     ProgramCache,
     abstract_value_signature,
     compile_graph,
+    compile_graph_spmd,
     trace_graph,
 )
+from .spmd import SpmdError, SpmdPlan, propagate, shard_graph  # noqa: F401
+from .oo_tape import oo_grad, oo_value_and_grad  # noqa: F401
 from .values import Closure, EnvInstance, SymbolicKey  # noqa: F401
 from .vm import VM, run_graph  # noqa: F401

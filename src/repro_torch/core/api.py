@@ -25,9 +25,9 @@ All four entry points (and ``compile_pipeline``) take a single frozen
 The historical per-kwarg spelling (``myia(fn, fuse=True, ...)``) still
 works through a shim that assembles the same ``CompileOptions`` and emits
 a ``DeprecationWarning``; both spellings produce identical compiled
-artifacts (same structural hash — pinned by tests).  ``in_specs`` (the
-SPMD tier, ROADMAP item A9) raises ``NotImplementedError`` naming its item
-when set.  ``checkpoint_policy``
+artifacts (same structural hash — pinned by tests).  ``in_specs`` arms the
+SPMD tier under a concrete mesh context (``repro_torch.parallel``).
+``checkpoint_policy``
 (loop-adjoint recording: ``"auto"`` / ``"save_all"`` / ``"recompute"`` /
 int slot count, see ``repro_torch.core.ad``) is only reachable through
 ``CompileOptions``.  ``MyiaFunction.options`` holds the resolved object;
@@ -53,6 +53,7 @@ import numpy as np
 import torch
 
 from repro_torch.obs import trace as obs_trace
+from repro_torch.parallel import current_mesh_context, is_concrete
 
 from .ad import (
     _needs_loop_pipeline,
@@ -65,6 +66,8 @@ from .ir import Constant, Graph, clone_graph
 from .lowering import lowering_blockers, try_lower
 from .opt import OptStats, count_nodes, optimize
 from .parser import MyiaSyntaxError, parse_function
+from .spmd import SpmdError
+from .torch_backend import compile_graph_spmd, mesh_descriptor
 from .dtypes import default_device, device_of, np_dtype, to_numpy
 from .values import is_array_like
 from .vm import VM
@@ -97,7 +100,7 @@ class CompileOptions:
     ``opt``              ``True``    the worklist optimizer (§4.3)
     ``fuse``             ``False``   fusion clusters → generated Triton kernels
     ``patterns``         ``False``   kernel-pattern rewrites (rmsnorm/attention)
-    ``in_specs``         ``None``    SPMD partitioning (ROADMAP A9; raises)
+    ``in_specs``         ``None``    SPMD partitioning (under a mesh context)
     ``program_cache``    ``None``    executable tier (``ProgramCache``)
     ``graph_cache``      ``None``    optimized-graph tier (skips optimize warm)
     ``trace``            ``None``    observability (``Tracer`` spans)
@@ -137,10 +140,6 @@ class CompileOptions:
     profile: bool = False
 
     def __post_init__(self) -> None:
-        if self.in_specs is not None:
-            raise NotImplementedError(
-                "CompileOptions.in_specs waits for its slice of the port (ROADMAP item A9)"
-            )
         if self.backend not in ("torch", "vm"):
             raise ValueError(f"backend must be 'torch' or 'vm', got {self.backend!r}")
 
@@ -518,8 +517,27 @@ class MyiaFunction:
                     out.append(("val", type(a).__name__, a))
         return tuple(out)
 
+    def _active_mesh(self):
+        """The concrete mesh the SPMD tier should target, or None.
+
+        None when no ``in_specs`` were configured, no mesh context is
+        active, or the context's mesh is abstract (spec-resolution tests).
+        A trivial 1×1 mesh still takes the spmd path — that identity with
+        the single-device tier is pinned by tests."""
+        if self.in_specs is None or self.backend != "torch":
+            return None
+        ctx = current_mesh_context()
+        if ctx is None or not is_concrete(ctx.mesh):
+            return None
+        return ctx.mesh
+
     def specialize(self, args: tuple) -> Callable:
-        key = (self.backend, self.fuse, self.patterns, self._sigkey(args))
+        mesh = self._active_mesh()
+        # key by shape AND rank/device identity: a same-shape mesh over other
+        # ranks must not reuse a runner closed over the old mesh (the same
+        # identity rule the program cache's key uses)
+        key = (self.backend, self.fuse, self.patterns, mesh_descriptor(mesh),
+               self._sigkey(args))
         hit = self._specializations.get(key)
         if hit is not None:
             return hit
@@ -532,11 +550,28 @@ class MyiaFunction:
                 example = None  # e.g. a list static: skip inference, VM handles it
             base = self._resolved_graph(example) if self.transforms else self.graph
             g = compile_pipeline(base, example, options=self.options)
-            runner = self._make_runner(g, args)
-            if self.options.profile and self.backend == "torch":
-                runner = _wrap_profiled(runner, g, self.fuse)
+            runner = None
+            if mesh is not None:
+                runner = self._make_spmd_runner(g, args, mesh)
+                # (spmd runners are never profile-wrapped: collectives
+                # only execute inside the per-shard program)
+            if runner is None:
+                runner = self._make_runner(g, args)
+                if self.options.profile and self.backend == "torch":
+                    runner = _wrap_profiled(runner, g, self.fuse)
             self._specializations[key] = runner
             return runner
+
+    def _make_spmd_runner(self, g: Graph, example_args: tuple, mesh) -> Callable | None:
+        """Sharded runner, or None → the single-device tier, as the
+        reference's (graph not first-order / non-array arguments /
+        propagation failure: ``SpmdError``, and nothing else)."""
+        if not all(is_array_like(a) for a in example_args):
+            return None
+        try:
+            return compile_graph_spmd(g, mesh, self.in_specs, fuse=self.fuse)
+        except SpmdError:
+            return None
 
     def _make_runner(self, g: Graph, example_args: tuple) -> Callable:
         """The lowered straight-line callable, run eagerly (every call runs
@@ -644,7 +679,11 @@ def myia(
       arms the executable tier: all-array specializations of lowerable
       graphs are built once and persisted, so a warm process rebuilds the
       stored program instead of lowering it again.
-    * ``in_specs`` waits for the SPMD tier and raises (ROADMAP item A9).
+    * ``in_specs`` (one sharding spec per argument) arms the SPMD tier:
+      under an active concrete mesh context the optimized (and fused) graph
+      is partitioned per shard and run on every rank of the mesh, with
+      collectives over ``torch.distributed``; with no mesh active the
+      single-device tiers run unchanged.
     """
     opts = _resolve_options(options, "myia", {
         "backend": backend, "opt": opt, "fuse": fuse, "patterns": patterns,

@@ -18,9 +18,9 @@ inference rules, with torch implementations in place of ``jnp``:
   of the torch ``impl`` on meta-device tensors in the inferencer.
 
 The structured loops run as host loops (the reference traces them into
-``lax.while_loop`` / ``lax.scan``).  The SPMD collectives stay registered,
-so the names and :data:`COLLECTIVE_NAMES` match the reference, but raise:
-the sharded tier is ROADMAP item A9.  Hand-written kernels register
+``lax.while_loop`` / ``lax.scan``).  The SPMD collectives run over
+``torch.distributed`` inside a per-shard program and raise outside one, as
+the reference's raise outside ``shard_map``.  Hand-written kernels register
 themselves as primitives with their own backpropagators in
 ``repro_torch.kernels.ops``.
 """
@@ -387,21 +387,62 @@ def _impl_bool_not(x):
 
 
 # ---------------------------------------------------------------------------
-# Collectives (SPMD tier).  In the reference these execute only inside a
-# ``shard_map`` region and carry no backpropagators (they are inserted
-# after AD).  The port registers the names so graphs, fusion's opaque set
-# and the optimizer's no-fold set match; executing one raises until the
-# sharded tier (ROADMAP item A9) is ported.
+# Collectives (SPMD tier).  These primitives only execute inside a per-shard
+# program (``torch_backend.compile_graph_spmd`` binds its mesh with
+# ``repro_torch.parallel.shard_program``), as the reference's execute only
+# inside ``shard_map``; outside one they raise.  They are inserted by
+# ``repro_torch.core.spmd`` *after* AD and optimization (resharding points of
+# the propagated sharding), so they carry no backpropagators —
+# differentiating through one is a pipeline ordering bug and must fail
+# loudly.  ``axes`` is a tuple of mesh axis names; ``sizes`` the matching
+# mesh axis sizes (baked in by the SPMD transform so shape inference needs
+# no mesh).  The bytes move over ``torch.distributed``
+# (``repro_torch.parallel.all_reduce`` / ``all_gather``).
 # ---------------------------------------------------------------------------
 
 
-def _collective(name: str) -> Callable:
-    def impl(*args):
-        raise NotImplementedError(
-            f"{name}: the SPMD collectives wait for the sharded tier (ROADMAP item A9)"
-        )
+def _shard_mesh(name: str):
+    from repro_torch.parallel import current_shard_mesh
 
-    return impl
+    mesh = current_shard_mesh()
+    if mesh is None:
+        raise RuntimeError(f"{name} executes only inside a per-shard program (no mesh bound)")
+    return mesh
+
+
+def _impl_psum_axes(x, axes):
+    from repro_torch.parallel import all_reduce, axis_group
+
+    mesh = _shard_mesh("psum_axes")
+    return all_reduce(_arr(x), "sum", axis_group(mesh, tuple(axes)))
+
+
+def _impl_pmax_axes(x, axes):
+    from repro_torch.parallel import all_reduce, axis_group
+
+    mesh = _shard_mesh("pmax_axes")
+    return all_reduce(_arr(x), "max", axis_group(mesh, tuple(axes)))
+
+
+def _impl_all_gather_axes(x, axes, dim, sizes):
+    from repro_torch.parallel import all_gather, axis_group
+
+    mesh = _shard_mesh("all_gather_axes")
+    out = _arr(x)
+    # gather innermost axis first so the outermost axis ends up as the
+    # slowest-varying block — matching shard_slice's linearized index
+    for a in reversed(tuple(axes)):
+        out = all_gather(out, dim, axis_group(mesh, (a,)))
+    return out
+
+
+def _impl_shard_slice(x, axes, dim, sizes):
+    from repro_torch.parallel import axis_index
+
+    idx = axis_index(_shard_mesh("shard_slice"), tuple(axes))
+    x = _arr(x)
+    block = x.shape[dim] // int(np.prod(sizes))
+    return x.narrow(dim, idx * block, block).contiguous()
 
 
 #: primitive names that communicate across shards (or re-partition a
@@ -544,10 +585,10 @@ concat_grad = register_primitive("concat_grad", _impl_concat_grad)
 one_hot = register_primitive("one_hot", _impl_one_hot, bprop="zeros")
 
 # collectives: bprop=None — AD through a resharding point must fail loudly
-psum_axes = register_primitive("psum_axes", _collective("psum_axes"))
-pmax_axes = register_primitive("pmax_axes", _collective("pmax_axes"))
-all_gather_axes = register_primitive("all_gather_axes", _collective("all_gather_axes"))
-shard_slice = register_primitive("shard_slice", _collective("shard_slice"))
+psum_axes = register_primitive("psum_axes", _impl_psum_axes)
+pmax_axes = register_primitive("pmax_axes", _impl_pmax_axes)
+all_gather_axes = register_primitive("all_gather_axes", _impl_all_gather_axes)
+shard_slice = register_primitive("shard_slice", _impl_shard_slice)
 
 # structured loops: bprop=None — their adjoints are loop-shaped, built by
 # ad.JTransformer._j_while/_j_scan rather than a pointwise VJP rule

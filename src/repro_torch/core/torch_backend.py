@@ -13,8 +13,12 @@ optimized-graph tier is the reference's as it is; its executable tier
 stores what the port's lowering builds (there is no XLA executable): the
 optimized graph, the lowered straight-line source with its environment, and
 the generated Triton sources of the fused clusters, whose binaries Triton
-keeps in ``<cache dir>/triton``.  ``compile_graph_spmd`` waits for the SPMD
-tier (ROADMAP item A9).
+keeps in ``<cache dir>/triton``.
+
+:func:`compile_graph_spmd` is the SPMD tier's backend: the per-shard program
+(``repro_torch.core.spmd.shard_graph``) lowered like any other graph, fused
+clusters included (K1 at local shapes), run on every rank of a
+``torch.distributed`` mesh with the collectives at its resharding points.
 """
 
 from __future__ import annotations
@@ -31,6 +35,7 @@ import numpy as np
 import torch
 
 from repro_torch.obs import trace as obs_trace
+from repro_torch.parallel import mesh_axes, shard_program
 
 from .dtypes import np_dtype
 from .ir import Graph
@@ -42,6 +47,7 @@ from .lowering import (
     lowering_blockers,
     try_lower,
 )
+from .primitives import all_gather_axes, shard_slice
 from .serialize import (
     FORMAT_VERSION,
     SerializeError,
@@ -51,6 +57,7 @@ from .serialize import (
     serialize_graph,
     structural_hash,
 )
+from .spmd import SpmdError, shard_graph
 from .vm import VM
 
 __all__ = [
@@ -60,6 +67,7 @@ __all__ = [
     "abstract_signature",
     "abstract_value_signature",
     "compile_graph",
+    "compile_graph_spmd",
     "lower_graph",
     "lowering_blockers",
     "mesh_descriptor",
@@ -119,6 +127,76 @@ def compile_graph(graph: Graph, *, lower: bool = True, fuse: bool = False) -> Ca
     runner.lowered = lowered
     runner.fn = fn
     return runner
+
+
+def compile_graph_spmd(
+    graph: Graph,
+    mesh: Any,
+    in_specs: Sequence[Any],
+    *,
+    fuse: bool = False,
+) -> Callable:
+    """Compile ``graph`` to a sharded callable over ``mesh`` (SPMD tier).
+
+    The sharding propagation pass (``repro_torch.core.spmd``) turns the
+    optimized global graph into a per-shard program — collectives at the
+    resharding points, shape constants localized — which lowers through the
+    ordinary straight-line path (with ``fuse=True``, its clusters run as K1
+    kernels generated at the *local* shapes; no cluster spans a collective).
+    Every rank calls the runner with the *global* arguments: it slices its
+    block of each by ``in_partition`` (index math, no communication), runs
+    the per-shard program, and all-gathers the outputs by ``out_partition``,
+    so every rank holds the global results (the reference's ``shard_map``
+    in and out).
+
+    Raises :class:`SpmdError` when the graph cannot be sharded (residual
+    recursion / higher-order calls, non-array parameters) — callers fall
+    back to the single-device tier.
+    """
+    sizes = mesh_axes(mesh)
+    sharded = shard_graph(graph, in_specs, sizes)
+    fn = try_lower(sharded.graph, fuse=fuse)
+    if fn is None:  # pragma: no cover - shard_graph already validated
+        raise SpmdError(f"per-shard program of {graph.name} failed to lower")
+
+    def runner(*args: Any) -> Any:
+        with shard_program(mesh):
+            local = tuple(_local_block(a, part, sizes)
+                          for a, part in zip(args, sharded.in_partition))
+            return _global_value(fn(*local), sharded.out_partition, sizes)
+
+    runner.__name__ = f"myia_spmd_{graph.name}"
+    runner.lowered = True
+    runner.spmd = True
+    runner.fn = fn
+    runner.sharded = sharded
+    runner.plan = sharded.plan
+    runner.mesh = mesh
+    return runner
+
+
+def _entry_axes(entry: Any) -> tuple:
+    return () if entry is None else ((entry,) if isinstance(entry, str) else tuple(entry))
+
+
+def _local_block(x: Any, partition: tuple, sizes: dict) -> Any:
+    """This rank's block of a global argument (``shard_slice`` per dim)."""
+    for d, entry in enumerate(partition):
+        axes = _entry_axes(entry)
+        if axes:
+            x = shard_slice.impl(x, axes, d, tuple(sizes[a] for a in axes))
+    return x
+
+
+def _global_value(out: Any, partition: Any, sizes: dict) -> Any:
+    """The global value of a per-shard output (``all_gather_axes`` per dim)."""
+    if isinstance(out, tuple):
+        return tuple(_global_value(o, p, sizes) for o, p in zip(out, partition))
+    for d, entry in enumerate(partition):
+        axes = _entry_axes(entry)
+        if axes:
+            out = all_gather_axes.impl(out, axes, d, tuple(sizes[a] for a in axes))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -194,11 +272,22 @@ class CacheStats:
 
 
 def mesh_descriptor(mesh: Any) -> tuple | None:
-    """Canonical identity of a concrete mesh.  The port runs on one device
-    until the SPMD tier (ROADMAP item A9): only ``None`` is accepted."""
+    """Canonical identity of a concrete mesh: axis names and sizes, the global
+    ranks in mesh order, and this rank's device.  The single definition shared
+    by the specialization key (``api.MyiaFunction``) and the program cache's
+    key — a same-shape mesh over different ranks or devices must never
+    collide."""
     if mesh is None:
         return None
-    raise NotImplementedError("device meshes wait for the SPMD tier (ROADMAP item A9)")
+    if mesh.device_type == "cuda":
+        device = f"cuda:{torch.cuda.current_device()}"
+    else:
+        device = mesh.device_type
+    return (
+        tuple(sorted(mesh_axes(mesh).items())),
+        tuple(int(r) for r in mesh.mesh.flatten().tolist()),
+        device,
+    )
 
 
 def abstract_signature(example_args: Sequence[Any]) -> str:

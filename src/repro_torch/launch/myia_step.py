@@ -11,8 +11,10 @@ The model is the reference's deliberately small tanh-MLP LM (embedding →
 two hidden matmuls → vocab projection → stable log-softmax
 cross-entropy): every op is a Myia primitive.  The SGD update and its
 gradient norm are plain torch ops outside the graph, as the reference's
-are ``jnp`` outside it.  The sharded tier (``lm_in_specs``, the mesh)
-waits for ROADMAP item A9.
+are ``jnp`` outside it.  The step carries :func:`lm_in_specs`: under an
+active mesh context (``repro_torch.parallel.mesh_context``) it runs as a
+per-shard program on every rank of the mesh (the SPMD tier), its clusters
+as K1 kernels at the local shapes; with no mesh, on the single-device tier.
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ __all__ = [
     "build_lm_loss",
     "build_lm_logits",
     "init_lm_params",
+    "lm_in_specs",
     "params_from_numpy",
     "make_myia_train_step",
 ]
@@ -91,6 +94,20 @@ def build_lm_loss(dims: MyiaLMDims, batch: int, seq: int):
     return lm_loss
 
 
+def lm_in_specs(*, with_labels: bool = True) -> tuple:
+    """Canonical sharding for the LM's arguments: batch data-parallel
+    activations, Megatron column/row split on the hidden pair, a
+    vocab-parallel output projection, replicated embedding table."""
+    specs = (
+        None,                  # emb (V, D): replicated (take indexes dim 0)
+        (None, "model"),       # w1 (D, H): column-parallel
+        ("model", None),       # w2 (H, D): row-parallel (psum after)
+        (None, "model"),       # wout (D, V): vocab-parallel
+        ("data",),             # tokens (B, S)
+    )
+    return specs + (("data",),) if with_labels else specs
+
+
 def init_lm_params(
     dims: MyiaLMDims, generator: torch.Generator, device: str | torch.device = "cuda"
 ) -> tuple:
@@ -124,18 +141,21 @@ def make_myia_train_step(
     seq: int,
     lr: float,
     *,
+    fuse: bool = True,
     device: str | torch.device = "cuda",
 ):
     """(step_fn, init_fn) for ``runtime.train_loop``.
 
     The loss and its adjoint are one Myia graph (``value_and_grad`` through
-    the ST transform, with the fusion tier, compiled on the first call); the
-    SGD update and the gradient norm are plain torch ops outside it, under
-    ``no_grad``."""
+    the ST transform, with the fusion tier unless ``fuse=False``, compiled on
+    the first call); the SGD update and the gradient norm are plain torch ops
+    outside it, under ``no_grad``.  The graph carries :func:`lm_in_specs`:
+    under an active mesh context the step transparently switches to the
+    sharded tier, and every rank holds the global parameters and gradients."""
     vag = api.value_and_grad(
         build_lm_loss(dims, batch, seq),
         wrt=(0, 1, 2, 3),
-        options=api.CompileOptions(fuse=True),
+        options=api.CompileOptions(fuse=fuse, in_specs=lm_in_specs()),
     )
 
     @torch.no_grad()

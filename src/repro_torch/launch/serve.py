@@ -21,8 +21,10 @@ the compiled decode graph, and built programs persist in the program cache
 builds none.  ``--full-prefix`` keeps the O(T²) full-prefix-recompute path
 (one specialization per length, the train-side LM) as the differential
 oracle; ``--check-oracle`` runs the engine AND the oracle and asserts the
-token streams are identical.  ``--data-mesh``/``--model-mesh`` > 1 wait for
-the SPMD tier (ROADMAP item A9)::
+token streams are identical.  Under ``--data-mesh``/``--model-mesh`` > 1 (one
+process a rank, ``python -m torch.distributed.run``) the full-prefix path runs
+the LM forward on the SPMD tier, batch data-parallel and the vocab projection
+model-parallel; the engine stays on one device, as the reference's does::
 
     PYTHONPATH=src python -m repro_torch.launch.serve --compiler myia \
         --batch 4 --prompt-len 1024 --gen 32 --check-oracle
@@ -190,12 +192,13 @@ def parse_args(argv=None) -> argparse.Namespace:
 def main(argv=None) -> int:
     args = parse_args(argv)
     cfg = get_config(args.arch, reduced=args.reduced)
+    if args.data_mesh * args.model_mesh > 1 and args.compiler != "myia":
+        raise NotImplementedError(
+            "--compiler torch under --data-mesh/--model-mesh waits for the model zoo's "
+            "sharded prefill and decode (ROADMAP item A9b)"
+        )
     if args.compiler == "myia":
-        if args.data_mesh * args.model_mesh > 1:
-            raise NotImplementedError(
-                "--data-mesh/--model-mesh > 1 wait for the SPMD tier (ROADMAP item A9)"
-            )
-        if args.full_prefix:
+        if args.full_prefix or args.data_mesh * args.model_mesh > 1:
             serve_myia_full_prefix(args, cfg)
         else:
             serve_myia_engine(args, cfg)
@@ -361,51 +364,79 @@ def serve_myia_engine(args: argparse.Namespace, cfg: ModelConfig) -> dict:
 
 
 def serve_myia_full_prefix(args: argparse.Namespace, cfg: ModelConfig) -> dict:
-    """Greedy decode off the Myia-compiled train-side LM forward, on one
-    device (the reference's SPMD tier waits for ROADMAP item A9).  Decode
-    recomputes the full prefix per step (one specialization per length).
-    Returns the fed tokens (B, gen) and the timings."""
+    """Greedy decode off the Myia-compiled train-side LM forward: on the SPMD
+    tier under ``--data-mesh``/``--model-mesh`` > 1 (batch data-parallel, the
+    vocab projection model-parallel: ``lm_in_specs(with_labels=False)``, the
+    train step's specs), on one device otherwise.  Decode recomputes the full
+    prefix per step (one specialization per length).  Returns the fed tokens
+    (B, gen), the timings, and which tier answered (``spmd``)."""
     from repro_torch.core import api
-    from repro_torch.launch.myia_step import MyiaLMDims, build_lm_logits, init_lm_params
+    from repro_torch.launch.mesh import line_out
+    from repro_torch.launch.myia_step import (
+        MyiaLMDims,
+        build_lm_logits,
+        init_lm_params,
+        lm_in_specs,
+    )
+    from repro_torch.parallel import mesh_context
 
     device = resolve_device(args.device)
+    mesh = None
+    if args.data_mesh * args.model_mesh > 1:
+        import torch.distributed as dist
+
+        from repro_torch.launch.mesh import make_local_mesh
+
+        mesh = make_local_mesh(args.data_mesh, args.model_mesh, device=device)
+        if device.type == "cuda":
+            device = torch.device("cuda", torch.cuda.current_device())
+        line_out(f"[myia/spmd {args.data_mesh}x{args.model_mesh} rank {dist.get_rank()}] "
+                 f"backend {dist.get_backend()} on {device}")
     dims = MyiaLMDims.from_config(cfg)
     params = init_lm_params(dims, torch.Generator(device=device).manual_seed(0), device)
-    logits_fn = api.myia(build_lm_logits(dims), options=api.CompileOptions(fuse=True))
+    logits_fn = api.myia(build_lm_logits(dims), options=api.CompileOptions(
+        fuse=True, in_specs=lm_in_specs(with_labels=False)))
 
     rng = np.random.default_rng(0)
     tokens = torch.as_tensor(
         rng.integers(0, dims.vocab, (args.batch, args.prompt_len)), dtype=torch.int32
     ).to(device)
-    _sync(device)
-    t0 = time.monotonic()
-    logits = logits_fn(*params, tokens)
-    _sync(device)
-    t_prefill = time.monotonic() - t0
-    out_tokens = []
-    t1 = time.monotonic()
-    for i in range(args.gen):
-        tok = torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)
-        out_tokens.append(tok)
-        if i + 1 == args.gen:
-            break  # the last sample needs no further forward pass
-        tokens = torch.cat([tokens, tok[:, None]], dim=1)
-        logits = logits_fn(*params, tokens)
-    _sync(device)
-    t_decode = time.monotonic() - t1
+    try:
+        with mesh_context(mesh, {}):
+            _sync(device)
+            t0 = time.monotonic()
+            logits = logits_fn(*params, tokens)
+            _sync(device)
+            t_prefill = time.monotonic() - t0
+            spmd = bool(getattr(logits_fn.specialize((*params, tokens)), "spmd", False))
+            out_tokens = []
+            t1 = time.monotonic()
+            for i in range(args.gen):
+                tok = torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)
+                out_tokens.append(tok)
+                if i + 1 == args.gen:
+                    break  # the last sample needs no further forward pass
+                tokens = torch.cat([tokens, tok[:, None]], dim=1)
+                logits = logits_fn(*params, tokens)
+            _sync(device)
+            t_decode = time.monotonic() - t1
+    finally:
+        if mesh is not None:
+            dist.destroy_process_group()
 
-    print(f"[myia/single-device] prefill: {args.batch}×{args.prompt_len} in {t_prefill:.3f}s")
-    print(
-        f"[myia/single-device] decode: {args.gen} steps × batch {args.batch} in "
+    tier = "spmd" if spmd else "single-device"
+    line_out(f"[myia/{tier}] prefill: {args.batch}×{args.prompt_len} in {t_prefill:.3f}s")
+    line_out(
+        f"[myia/{tier}] decode: {args.gen} steps × batch {args.batch} in "
         f"{t_decode:.3f}s (full-prefix recompute, one specialization per length)"
     )
     gen = (torch.stack(out_tokens, dim=1).cpu().numpy() if out_tokens
            else np.zeros((args.batch, 0), np.int32))
     if out_tokens:
-        print("sample generations (token ids):")
+        line_out("sample generations (token ids):")
         for row in gen[:2]:
-            print("  ", row[:16].tolist())
-    return {"tokens": gen, "prefill_s": t_prefill, "decode_s": t_decode}
+            line_out(f"   {row[:16].tolist()}")
+    return {"tokens": gen, "prefill_s": t_prefill, "decode_s": t_decode, "spmd": spmd}
 
 
 if __name__ == "__main__":

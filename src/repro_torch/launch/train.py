@@ -16,14 +16,29 @@ optimize → fuse → lower), whose fusion clusters run as generated Triton kern
     PYTHONPATH=src python -m repro_torch.launch.train --compiler myia --steps 20
 
 ``--device cpu`` runs the plain PyTorch versions of the kernels on the CPU (use
-``--reduced`` there); the default is ``cuda``.  The mesh flags wait for the sharded
-tier (ROADMAP item A9).
+``--reduced`` there); the default is ``cuda``.
+
+Under ``--data-mesh``/``--model-mesh`` with more than one rank, ``--compiler myia``
+runs the step on the SPMD tier (``repro_torch.core.spmd``): every rank runs the
+per-shard program of the loss and its adjoint, with collectives over
+``torch.distributed`` at its resharding points.  Start one process per rank:
+
+    PYTHONPATH=src python -m torch.distributed.run --standalone --nproc-per-node 2 \
+        -m repro_torch.launch.train --compiler myia --data-mesh 2 --steps 20
+
+Each rank takes ``cuda:{LOCAL_RANK % device_count}``.  The backend follows the
+topology and is printed: NCCL when every rank has a card of its own, gloo when
+ranks share a card (NCCL refuses two ranks on one device) or with ``--device cpu``.
+Each rank checkpoints its (replicated) state under ``<ckpt-dir>/rank<r>``.
+``--compiler torch`` under a mesh waits for ROADMAP item A9b.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import os
+import statistics
 import tempfile
 import time
 
@@ -52,6 +67,8 @@ def main(argv=None) -> int:
     )
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    ap.add_argument("--data-mesh", type=int, default=1, help="data axis size (ranks)")
+    ap.add_argument("--model-mesh", type=int, default=1, help="model axis size (ranks)")
     ap.add_argument(
         "--compiler",
         default="torch",
@@ -64,6 +81,11 @@ def main(argv=None) -> int:
     device = resolve_device(args.device)
     cfg = get_config(args.arch, reduced=args.reduced)
     ds = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=args.seq, global_batch=args.batch))
+    if args.data_mesh * args.model_mesh > 1 and args.compiler != "myia":
+        raise NotImplementedError(
+            "--compiler torch under --data-mesh/--model-mesh waits for the model zoo's "
+            "sharded train step (ROADMAP item A9b)"
+        )
     if args.compiler == "myia":
         return _train_myia(args, cfg, ds, device)
     opt = make_optimizer(
@@ -108,43 +130,99 @@ def main(argv=None) -> int:
 
 def _train_myia(args, cfg, ds, device) -> int:
     """The Myia-compiled step: the same train_loop and checkpointing, with the
-    loss and its adjoint run through the paper pipeline and plain SGD."""
-    from repro_torch.launch.myia_step import MyiaLMDims, make_myia_train_step
+    loss and its adjoint run through the paper pipeline and plain SGD.  Under
+    ``--data-mesh``/``--model-mesh`` > 1 this process is one rank of the mesh
+    and the step runs on the SPMD tier; each rank checkpoints under
+    ``<ckpt-dir>/rank<r>`` and prints its per-shard plan, its K1 launches, its
+    step times and losses (one ``SPMD_RANK`` JSON line)."""
+    import torch
+    import torch.distributed as dist
 
+    from repro_torch.kernels import FUSED_LAUNCHES, LAUNCHES, reset_launches
+    from repro_torch.launch.mesh import line_out, make_local_mesh
+    from repro_torch.launch.myia_step import MyiaLMDims, make_myia_train_step
+    from repro_torch.parallel import mesh_context
+
+    mesh, tag, ckpt_dir, who = None, "", args.ckpt_dir, {}
+    if args.data_mesh * args.model_mesh > 1:
+        mesh = make_local_mesh(args.data_mesh, args.model_mesh, device=device)
+        if device.type == "cuda":
+            device = torch.device("cuda", torch.cuda.current_device())
+        who = {"rank": dist.get_rank(), "world": dist.get_world_size(),
+               "mesh": [args.data_mesh, args.model_mesh], "backend": dist.get_backend(),
+               "device": str(device)}
+        tag = f"[myia/spmd {args.data_mesh}x{args.model_mesh} rank {who['rank']}/{who['world']}] "
+        ckpt_dir = os.path.join(ckpt_dir, f"rank{who['rank']}")
+        line_out(f"{tag}backend {who['backend']} on {device}"
+                 f"{f' ({torch.cuda.get_device_name(device)})' if device.type == 'cuda' else ''}")
     if args.optimizer != "adamw":  # adamw is the argparse default
         print(
             f"warning: --compiler myia uses plain SGD; --optimizer {args.optimizer} ignored"
         )
     dims = MyiaLMDims.from_config(cfg)
     step_fn, init_fn = make_myia_train_step(dims, args.batch, args.seq, args.lr, device=device)
-    t_start = time.monotonic()
+    marks = [time.monotonic()]  # the loop's float(loss) has waited for each step
 
     def on_step(step, metrics):
+        marks.append(time.monotonic())
         if step % 10 == 0:
-            print(
-                f"step {step:5d} loss {float(metrics['loss']):.4f} "
+            line_out(
+                f"{tag}step {step:5d} loss {float(metrics['loss']):.4f} "
                 f"gnorm {float(metrics['gnorm']):.3f} "
-                f"({(time.monotonic() - t_start):.1f}s)"
+                f"({(marks[-1] - marks[0]):.1f}s)"
             )
 
-    result = train_loop(
-        TrainLoopConfig(
-            total_steps=args.steps,
-            checkpoint_every=args.ckpt_every,
-            checkpoint_dir=args.ckpt_dir,
-        ),
-        step_fn,
-        init_fn,
-        lambda s: to_device(ds.batch(s), device),
-        device=device,
-        on_step=on_step,
-    )
+    reset_launches()
+    try:
+        with mesh_context(mesh, {}):
+            result = train_loop(
+                TrainLoopConfig(
+                    total_steps=args.steps,
+                    checkpoint_every=args.ckpt_every,
+                    checkpoint_dir=ckpt_dir,
+                ),
+                step_fn,
+                init_fn,
+                lambda s: to_device(ds.batch(s), device),
+                device=device,
+                on_step=on_step,
+            )
+            batch = to_device(ds.batch(0), device)
+            runner = step_fn.vag.specialize(
+                (*result.state["params"], batch["tokens"], batch["labels"]))
+    finally:
+        if mesh is not None:
+            dist.destroy_process_group()
     first = result.losses[0]
     last = np.mean(result.losses[-10:])
-    print(
-        f"\ndone [myia]: {result.final_step} steps on {device}, "
-        f"loss {first:.4f} → {last:.4f}, {result.restarts} restarts"
+    line_out(
+        f"\n{tag}done [myia{'/spmd' if mesh is not None else ''}]: {result.final_step} steps "
+        f"on {device}, loss {first:.4f} → {last:.4f}, {result.restarts} restarts"
     )
+    if mesh is None:
+        return 0
+    assert runner.spmd, "the step did not take the SPMD tier"
+    plan = runner.fn.__fusion_plan__
+    step_s = [b - a for a, b in zip(marks, marks[1:])]
+    report = {
+        **who,
+        "plan": plan.stats(),
+        "clusters": [(c.kind, list(c.body_shape), [n.fn.value.name for n in c.order])
+                     for c in plan.clusters],
+        "launches_per_call": {k.name: k.launches_per_call for k in runner.fn.__fused_kernels__},
+        "collectives": runner.sharded.stats,
+        "launches": dict(LAUNCHES), "fused_launches": dict(FUSED_LAUNCHES),
+        "step_s": step_s, "steps": result.final_step, "restarts": result.restarts,
+        "losses": result.losses,
+    }
+    timed = step_s[1:] or step_s
+    line_out(f"{tag}per-shard plan {report['plan']}: clusters {report['clusters']}; "
+             f"collectives {report['collectives']}")
+    line_out(f"{tag}K1 launches {report['launches']}, by kernel {report['fused_launches']}")
+    line_out(f"{tag}step time median {statistics.median(timed):.4f}s over {len(timed)} step(s) "
+             f"after the first ({step_s[0]:.2f}s with the pipeline and builds); losses "
+             f"{result.losses}")
+    line_out(f"SPMD_RANK {json.dumps(report)}")
     return 0
 
 

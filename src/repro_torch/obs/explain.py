@@ -13,8 +13,9 @@ private clone and returns one structured, JSON-serializable
   structured :class:`~repro_torch.core.fusion.DeclineReason`) and a per-node
   decision (``fused`` into which cluster, or ``unfused`` with a reason
   object — never a bare string),
-* **sharding** — the structured reason the SPMD tier did not engage (the
-  port runs on a single device until ROADMAP item A9),
+* **sharding** — the per-node spec table the SPMD propagator settled on
+  (params, nodes with their post-collectives, out spec), or the structured
+  reason the tier did not engage,
 * **cache** — graph-tier and exec-tier verdicts (``graph-hit`` / ``miss``
   / ``exec-hit`` / ``cold`` / ``unkeyable`` / ``disabled``) with the keys,
 * **loops** — the checkpoint policy and slot budget each structured-loop
@@ -270,9 +271,21 @@ def _fusion_section(g: Any, options: Any) -> dict:
     return {"enabled": True, "clusters": clusters, "nodes": nodes}
 
 
+def _render_spec(spec: Any) -> Any:
+    """A sharding spec as JSON: per-dim lists of mesh axis names,
+    ``"scalar"`` for the non-array sentinel, nested lists for tuples."""
+    from repro_torch.core.spmd import _SCALAR, _TSpec
+
+    if spec == _SCALAR:
+        return "scalar"
+    if isinstance(spec, _TSpec):
+        return [_render_spec(e) for e in spec.elements]
+    if spec is None:
+        return None
+    return [list(dim) for dim in spec]
+
+
 def _sharding_section(g: Any, options: Any) -> dict:
-    """The SPMD tier's verdict.  The port runs on a single device until the
-    SPMD tier (ROADMAP item A9), so a program is never sharded."""
     if options.in_specs is None:
         return {
             "verdict": "unsharded",
@@ -280,11 +293,50 @@ def _sharding_section(g: Any, options: Any) -> dict:
                 "no-in-specs", "CompileOptions.in_specs not set; SPMD tier inert"
             ),
         }
-    return {  # pragma: no cover - CompileOptions refuses in_specs until A9
-        "verdict": "unsharded",
-        "reason": _reason(
-            "single-device", "single device: the SPMD tier waits for ROADMAP item A9"
-        ),
+    from repro_torch.parallel import current_mesh_context, is_concrete, mesh_axes
+
+    ctx = current_mesh_context()
+    if ctx is None or not is_concrete(ctx.mesh):
+        return {
+            "verdict": "unsharded",
+            "reason": _reason(
+                "no-active-mesh",
+                "in_specs configured but no concrete mesh context is active",
+            ),
+        }
+    from repro_torch.core.ir import Apply, toposort
+    from repro_torch.core.spmd import SpmdError, propagate
+
+    axes = mesh_axes(ctx.mesh)
+    try:
+        plan = propagate(g, options.in_specs, axes)
+    except SpmdError as e:
+        return {
+            "verdict": "fallback-single-device",
+            "mesh": axes,
+            "reason": _reason("spmd-error", str(e)),
+        }
+    names = _node_names(g)
+    params = [
+        {"param": names[p._id], "spec": _render_spec(plan.spec_of(p))}
+        for p in g.parameters
+    ]
+    nodes = []
+    for n in toposort(g):
+        if not isinstance(n, Apply):
+            continue
+        op = n.fn.value.name if hasattr(n.fn.value, "name") else repr(n.fn)
+        row = {"node": names[n._id], "op": op, "spec": _render_spec(plan.spec_of(n))}
+        post = plan.post.get(n._id)
+        if post:
+            row["post"] = [[kind, list(axes_)] for kind, axes_ in post]
+        nodes.append(row)
+    return {
+        "verdict": "sharded",
+        "mesh": axes,
+        "params": params,
+        "nodes": nodes,
+        "out_spec": _render_spec(plan.out_spec),
     }
 
 

@@ -40,7 +40,8 @@ def test_port_files_exist():
     assert "src/repro_torch/launch/myia_step.py" in names
     for module in ("core/torch_backend.py", "obs/metrics.py", "obs/profile.py",
                    "obs/explain.py", "serve/__init__.py", "serve/model.py", "serve/faults.py",
-                   "serve/engine.py"):
+                   "serve/engine.py", "core/oo_tape.py", "core/spmd.py", "parallel/__init__.py",
+                   "launch/mesh.py"):
         assert f"src/repro_torch/{module}" in names, module
 
 
@@ -134,6 +135,30 @@ def test_importing_the_serving_runtime_loads_no_jax_or_triton():
         "import repro_torch.obs.metrics, repro_torch.obs.profile, repro_torch.obs.explain\n"
         "import repro_torch.core.torch_backend, repro_torch.launch.serve\n"
         "import repro_torch.launch.profile_serve_myia\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro', 'triton'))\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code],
+        cwd=ROOT,
+        env={"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"},
+        capture_output=True,
+        text=True,
+        timeout=240,
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+def test_importing_the_spmd_tier_loads_no_jax_or_triton():
+    """The OO tape, the SPMD tier and the mesh layer import neither jax, the
+    reference, nor triton."""
+    code = (
+        "import sys\n"
+        "import repro_torch.core, repro_torch.core.oo_tape, repro_torch.core.spmd\n"
+        "import repro_torch.parallel, repro_torch.launch.mesh\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro', 'triton'))\n"
         "assert not bad, bad\n"

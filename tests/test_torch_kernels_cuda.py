@@ -625,3 +625,87 @@ def test_program_cache_finds_k1_binaries_again(cuda, tmp_path):
     assert warm["stats"]["hits"] == 1 and warm["stats"]["programs_built"] == 0, warm
     assert warm["loss"] == cold["loss"]
     assert any(f.endswith(".cubin") for _d, _s, fs in os.walk(tmp_path / "triton") for f in fs)
+
+
+def _collective_checks(mesh, x_of, world, dev):
+    """The four collectives of the SPMD tier inside a per-shard program on
+    ``mesh``, against their definitions: every rank's block ``x_of(r)``."""
+    from repro_torch.core import primitives as P
+    from repro_torch.parallel import axis_index, shard_program
+
+    blocks = [x_of(r).to(dev) for r in range(world)]
+    me = blocks[axis_index(mesh, ("data",))]
+    with shard_program(mesh):
+        outs = {"psum": P.psum_axes.impl(me, ("data",)), "pmax": P.pmax_axes.impl(me, ("data",))}
+        for dim in (0, 1):
+            outs[f"gather{dim}"] = P.all_gather_axes.impl(me, ("data",), dim, (world,))
+        outs["slice"] = P.shard_slice.impl(torch.cat(blocks, dim=1), ("data",), 1, (world,))
+    want_max = blocks[0]
+    for b in blocks[1:]:
+        want_max = torch.maximum(want_max, b)
+    want = {"psum": sum(blocks[1:], blocks[0]), "pmax": want_max, "slice": me,
+            **{f"gather{dim}": torch.cat(blocks, dim=dim) for dim in (0, 1)}}
+    for k, v in outs.items():
+        assert v.device == me.device and torch.equal(v, want[k]), k
+
+
+def test_collectives_on_an_nccl_world_of_one(cuda, tmp_path):
+    """psum/pmax/all_gather/shard_slice over a real NCCL group of one rank."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_local_mesh
+
+    assert not dist.is_initialized()
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path / 'store'}", rank=0,
+                            world_size=1)
+    try:
+        mesh = make_local_mesh(1, 1)
+        assert dist.get_backend() == "nccl"
+        _collective_checks(mesh, lambda r: torch.arange(12.0).reshape(3, 4) * (r + 1), 1, cuda)
+    finally:
+        dist.destroy_process_group()
+
+
+_GLOO_RANK = """
+import sys
+import torch
+import torch.distributed as dist
+sys.path.insert(0, sys.argv[3])
+from repro_torch.launch.mesh import make_local_mesh
+from test_torch_kernels_cuda import _collective_checks
+
+rank = int(sys.argv[1])
+torch.cuda.set_device(0)
+dist.init_process_group("gloo", init_method="file://" + sys.argv[2], rank=rank, world_size=2)
+mesh = make_local_mesh(2, 1)
+_collective_checks(mesh, lambda r: torch.arange(12.0).reshape(3, 4) * (r + 1) - 5 * r, 2,
+                   torch.device("cuda"))
+dist.destroy_process_group()
+print("OK", rank)
+"""
+
+
+def test_collectives_on_two_gloo_ranks_sharing_the_card(cuda, tmp_path):
+    """The same on two ranks over gloo, both on the one card (the transport of a
+    mesh that shares a card: NCCL refuses two ranks on one device)."""
+    import os
+    import subprocess
+    import sys
+
+    tests = os.path.dirname(os.path.abspath(__file__))
+    src = os.path.join(tests, "..", "src")
+    env = dict(os.environ, PYTHONPATH=src + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    script = tmp_path / "rank.py"
+    script.write_text(_GLOO_RANK)
+    procs = [subprocess.Popen([sys.executable, str(script), str(r), str(tmp_path / "store"),
+                               tests], env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True) for r in range(2)]
+    try:
+        for r, p in enumerate(procs):
+            out, err = p.communicate(timeout=300)
+            assert p.returncode == 0 and f"OK {r}" in out, err[-4000:]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()

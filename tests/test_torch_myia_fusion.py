@@ -177,17 +177,13 @@ def test_kernel_mode_takes_the_ports_implementations():
 
 @pytest.mark.parametrize("field,value,item", [
     ("program_cache", object(), "A5"), ("graph_cache", object(), "A5"),
-    ("in_specs", (None,), "A9"), ("profile", True, "A6"),
+    ("in_specs", (None,), "A9a"), ("profile", True, "A6"),
 ])
 def test_compile_options_of_later_slices_raise(field, value, item):
-    """The options of slices still to port raise naming their ROADMAP item;
-    those of A5 (the program cache) and A6 (the profiler), ported since, are
-    accepted and held."""
-    if item == "A9":
-        with pytest.raises(NotImplementedError, match=item):
-            T.CompileOptions(**{field: value})
-    else:
-        assert getattr(T.CompileOptions(**{field: value}), field) is value
+    """The options of later slices raised naming their ROADMAP item until their
+    slice was ported; those of A5 (the program cache), A6 (the profiler) and
+    A9a (the SPMD tier's ``in_specs``) are all ported now: accepted and held."""
+    assert getattr(T.CompileOptions(**{field: value}), field) is value
 
 
 def test_explain_and_profiled_lowering_raise():

@@ -191,8 +191,12 @@ def test_the_array_primitives_are_covered():
 
 @pytest.mark.parametrize("name", sorted(TP.COLLECTIVE_NAMES))
 def test_collectives_raise_until_the_sharded_tier(name):
-    with pytest.raises(NotImplementedError, match="A9"):
-        TP.PRIMITIVES[name].impl(torch.ones(2), ("data",))
+    """The collectives run only inside a per-shard program of the SPMD tier
+    (``tests/test_torch_spmd*.py`` run them); outside one they raise, as the
+    reference's raise outside ``shard_map``."""
+    extra = () if name in ("psum_axes", "pmax_axes") else (0, (1,))
+    with pytest.raises(RuntimeError, match="per-shard program"):
+        TP.PRIMITIVES[name].impl(torch.ones(2), ("data",), *extra)
 
 
 def test_loops_run_on_the_host():

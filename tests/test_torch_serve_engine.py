@@ -264,8 +264,12 @@ def test_launch_serve_myia_full_prefix_and_mesh_flags(capsys):
     assert main(["--compiler", "myia", "--full-prefix", "--reduced", "--device", "cpu",
                  "--batch", "2", "--prompt-len", "5", "--gen", "3"]) == 0
     assert "full-prefix recompute" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="A9"):
+    # a mesh of two ranks needs two processes (torch.distributed.run): this one is
+    # a world of one; the two-rank run is tests/test_torch_spmd_exec.py's
+    with pytest.raises(ValueError, match="2 ranks"):
         main(["--compiler", "myia", "--reduced", "--device", "cpu", "--data-mesh", "2"])
+    with pytest.raises(NotImplementedError, match="A9b"):
+        main(["--reduced", "--device", "cpu", "--data-mesh", "2"])
 
 
 def test_make_serve_fns_match_the_model():
