@@ -289,6 +289,21 @@ SM_TINY_REL = 1e-5
 # also proves that the cache finds a fused program's Triton binaries again: the Myia LM
 # loss and its adjoint at tiny dims (4 clusters) through the same cache, cold in this
 # process and warm in the second.  Run in both processes (exec'd from this source).
+# The model zoo under a mesh (phases 32-34).  Phase 32: internlm2-1.8b at full width and
+# depth in bf16, batch 8 x 1024, AdamW, 3 steps, and gemma3-1b's prefill of 4 x 1024 and
+# 8 greedy steps, on a 1x1 mesh over NCCL against the single-device step.  Phase 33: two
+# ranks sharing the card over gloo; their runs keep every width and cut internlm2's depth
+# to SH_LAYERS of its 24 layers (printed), so that two ranks' states, each with a
+# single-device reference beside it in f32, fit the card and the phase its time.  The
+# reference's SPMD bounds hold the two-rank runs (and the 1x1 run where DTensor reorders
+# a sum): losses rtol 2e-5, parameters rtol 2e-4 and atol 1e-6.
+SH_STEPS, SH_B, SH_S, SH_GEN, SH_LAYERS = 3, 8, 1024, 8, 4
+SH_SERVE_B = 4
+SH_LOSS_RTOL, SH_PARAM_RTOL, SH_PARAM_ATOL = 2e-5, 2e-4, 1e-6
+# the dry run's cells (phase 34): (arch, cell, mesh)
+SH_DRYRUN = (("internlm2-1.8b", "train_4k", "single"), ("gemma3-1b", "decode_32k", "single"),
+             ("grok-1-314b", "train_4k", "multi"))
+
 SM_K1_PROBE = """
 def k1_probe(cache_dir):
     import torch
@@ -1410,10 +1425,22 @@ def capturing_k1(captured: dict):
         codegen.FusedKernel.__call__ = call
 
 
-def check_k1(torch, captured: dict) -> dict:
+def _k1_members(k, a: tuple) -> list[str]:
+    """The members of one of the Myia LM step's four clusters, told apart by kind and
+    operands: the reduce; the argmax mask (a broadcast row max against the logits);
+    tanh's backward (two operands of one shape)."""
+    if k.kind != "map":
+        return ["sub", "mul", "reduce_sum"]
+    return ["mul", "sub", "mul"] if a[0].shape == a[1].shape else ["unreduce", "eq", "cast"]
+
+
+def check_k1(torch, captured: dict, timed: bool = True) -> dict:
     """Each captured K1 kernel against its oracle on the inputs the path gave it, at
-    phase 17's bounds (a map within an ulp, the reduce within REDUCE_TOL):
-    name -> [max_abs_err, ulps (None for the reduce)]."""
+    phase 17's bounds (a map within an ulp, the reduce within REDUCE_TOL), and timed
+    there by phase 21's method beside its library call (phase 17's, where one
+    exists): name -> [max_abs_err, ulps (None for the reduce), kernel_ms, library_ms
+    (None where no PyTorch call computes the cluster)]; untimed, both times are None
+    (a rank that shares the card with the timed one)."""
     from repro_torch.kernels import k1_cases
 
     out = {}
@@ -1426,14 +1453,26 @@ def check_k1(torch, captured: dict) -> dict:
         else:
             torch.testing.assert_close(got, want, **k1_cases.REDUCE_TOL["float32"])
             u = None
-        out[name] = [(got - want).abs().max().item(), u]
+        ms = lib_ms = None
+        lib = k1_library_call(torch, _k1_members(k, a), a, want)
+        if lib is not None:
+            torch.testing.assert_close(lib[0](), want, **k1_cases.REDUCE_TOL["float32"])
+            lib_ms = readings(torch, lib[0])["kernel_ms"] if timed else None
+        if timed:
+            ms = readings(torch, lambda: k.triton(*a))["kernel_ms"]
+        out[name] = [(got - want).abs().max().item(), u, ms, lib_ms]
     return out
+
+
+#: the host ranges of collectives: the port's own, and DTensor's (funcol) calls
+_COLLECTIVE_RANGES = ("repro.all_", "c10d_functional::", "_c10d_functional::")
 
 
 def trace_summary(torch, prof, wall_s: float) -> dict:
     """One step under ``torch.profiler``: its wall time; the host time of its
-    collectives (the ``repro.*`` ranges the port's collectives run under, each
-    from the call to its return); the card's busy time (the union of its kernels'
+    collectives (the ``repro.*`` ranges the port's collectives run under, and
+    DTensor's functional collectives, ``c10d_functional::*``, each from the call to
+    its return); the card's busy time (the union of its kernels'
     and copies' spans), copies and idle share; the heaviest rows on the card and
     on the host (self time).  The card's rows leave out the profiler's mirrors of
     host ranges (``repro.*``, ``gloo:*``), which are no work on the card."""
@@ -1443,7 +1482,7 @@ def trace_summary(torch, prof, wall_s: float) -> dict:
     coll, dev_ms, spans = {}, {}, []
     for e in events:
         ms = e.time_range.elapsed_us() / 1e3
-        if e.device_type == cpu and e.name.startswith("repro.all_"):
+        if e.device_type == cpu and e.name.startswith(_COLLECTIVE_RANGES):
             n, t = coll.get(e.name, (0, 0.0))
             coll[e.name] = (n + 1, t + ms)
         elif e.device_type == cuda and e.name not in host_names:
@@ -1512,7 +1551,8 @@ def spmd_rank(argv_json: str, traced: int) -> int:
             rc = train_cli.main(json.loads(argv_json))
     finally:
         train_cli.train_loop = loop
-    line_out("SPMD_CHECK " + json.dumps({"rank": rank, "k1": check_k1(torch, captured),
+    line_out("SPMD_CHECK " + json.dumps({"rank": rank, "k1": check_k1(torch, captured,
+                                                                       timed=rank == 0),
                                          "trace": trace}))
     return rc
 
@@ -1619,7 +1659,8 @@ def spmd_phases(torch, dev, card: str, myia: dict) -> dict:
         f"{prel:.3f} of their bound (rtol {SPMD_PARAM_RTOL}, atol {SPMD_PARAM_ATOL}); "
         f"per-shard clusters {[(k, b, m) for k, b, m, _n, _by in plan_1x1]} as the host's "
         f"plan, K1 launches by name {mesh_f['fused']} ({SPMD_STEPS} steps); each per-shard "
-        f"kernel against its oracle on the first step's inputs, [max_abs_err, ulps] in plan "
+        f"kernel against its oracle on the first step's inputs, [max_abs_err, ulps, kernel_ms, "
+        f"library_ms] in plan "
         f"order {out['train_myia_spmd_1x1']['errs']}")
     say(f"[spmd-1x1] {card}: step {med:.4f}s on the 1x1 mesh against {med_single:.4f}s on "
         f"the single-device tier in this phase and {myia['step_s']:.4f}s in phase 19 "
@@ -1679,9 +1720,9 @@ def spmd_phases(torch, dev, card: str, myia: dict) -> dict:
             errs.append([c["k1"][name] for name in r["launches_per_call"]])
         lrel = max(loss_rel(r["losses"], want_losses) for r in reports)
         assert lrel <= SPMD_LOSS_RTOL and max(prels) <= 1.0, (lrel, prels)
-        # the worse of the two ranks, cluster by cluster
-        errs = [[max(e[0] for e in per), None if per[0][1] is None else max(e[1] for e in per)]
-                for per in zip(*errs)]
+        # the worse of the two ranks, cluster by cluster, and rank 0's times
+        errs = [[max(e[0] for e in per), None if per[0][1] is None else max(e[1] for e in per),
+                 per[0][2], per[0][3]] for per in zip(*errs)]
         trace = checks[0]["trace"]
         assert trace["wall_ms"] > 0 and trace["collectives"] and trace["device_busy_ms"] > 0, \
             trace
@@ -1695,7 +1736,8 @@ def spmd_phases(torch, dev, card: str, myia: dict) -> dict:
             f"(the steps between the first and the profiled last); phase "
             f"{time.monotonic() - t_phase:.1f}s")
         say(f"[spmd-{data}x{model}] each per-shard kernel against its oracle on each rank's "
-            f"first-step inputs, [max_abs_err, ulps] in plan order, the worse rank: {errs}")
+            f"first-step inputs, [max_abs_err, ulps, rank 0's kernel_ms and library_ms] in "
+            f"plan order, the worse rank: {errs}")
         say(f"[spmd-{data}x{model}] {card}: rank 0's step {SPMD_STEPS} under torch.profiler: "
             f"wall {trace['wall_ms']:.1f} ms; collectives {trace['collective_ms']:.1f} ms "
             f"({trace['collective_share']:.1%}) {trace['collectives']} [calls, ms]; card busy "
@@ -1703,6 +1745,399 @@ def spmd_phases(torch, dev, card: str, myia: dict) -> dict:
             f"{trace['memcpy_ms']:.1f} ms; heaviest on the card [ms, calls, name] "
             f"{trace['top_device']}; on the host (self) {trace['top_host']}")
     return out
+
+
+def _sh_train_cfg(dtype: str, layers: int | None):
+    """internlm2-1.8b at full width in ``dtype``, cut to ``layers`` (None: all 24)."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config("internlm2-1.8b")
+    return dataclasses.replace(cfg, n_layers=layers or cfg.n_layers, param_dtype=dtype,
+                               compute_dtype=dtype)
+
+
+def _launch_counts() -> dict:
+    """Every kernel counter as it stands: K2-K5 and K1's totals by name, and K1's
+    generated kernels under ``fused`` (read whole: a kernel absent there did not
+    launch)."""
+    from repro_torch.kernels import FUSED_LAUNCHES, LAUNCHES
+
+    return {**LAUNCHES, "fused": dict(FUSED_LAUNCHES)}
+
+
+def _sh_train(torch, cfg, dev, step_fn, init, batches, trace_step=None):
+    """Run ``step_fn`` over ``batches`` from ``init()``: losses, the final state, the
+    step times and, per step, every kernel counter; with ``trace_step``, that step
+    runs under ``torch.profiler`` (its summary in the result)."""
+    from repro_torch.kernels import reset_launches
+
+    state, losses, times, per_step, trace = init(), [], [], [], None
+    for i, b in enumerate(batches):
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        if i == trace_step:
+            acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+            with torch.profiler.profile(activities=acts) as prof:
+                state, m = step_fn(state, b)
+                torch.cuda.synchronize()
+            trace = trace_summary(torch, prof, time.monotonic() - t0)
+        else:
+            state, m = step_fn(state, b)
+        losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        times.append(time.monotonic() - t0)
+        per_step.append(_launch_counts())
+    return {"losses": losses, "state": state, "times": times, "launches": per_step,
+            "trace": trace}
+
+
+def _sh_params_within(got: list, want: list) -> tuple[float, str]:
+    """Largest |got - want| / (atol + rtol |want|) over every parameter (``got``:
+    (path, tensor) pairs), and the leaf where it is."""
+    worst, where = 0.0, ""
+    for (path, g), w in zip(got, want, strict=True):
+        r = ((g.float() - w.float()).abs() / (SH_PARAM_ATOL + SH_PARAM_RTOL * w.float().abs())
+             ).max().item()
+        if r > worst:
+            worst, where = r, "/".join(str(k) for k in path)
+    return worst, where
+
+
+def sharded_phases(torch, dev, card: str) -> dict:
+    """Phases 32-34: the model zoo's placed steps (``repro_torch.distributed.jit_*``) on
+    a 1x1 mesh over NCCL against the single-device step; two ranks sharing the card
+    over gloo (the launcher itself, and this script's rank program holding each rank
+    against the single-device step); the dry run on the production meshes.  Returns the
+    kernel launches by path."""
+    import os
+
+    import torch.distributed as dist
+
+    from repro_torch import tree as T
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLM, to_device
+    from repro_torch.distributed import (
+        jit_decode_step, jit_prefill, jit_train_step, make_rules, make_serve_fns,
+        make_train_state_fn, make_train_step)
+    from repro_torch.kernels import reset_launches
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.launch.serve import make_prompts
+    from repro_torch.models import init_params
+    from repro_torch.models.model import abstract_params, stacked_layer_groups
+    from repro_torch.optim import OptConfig, make_optimizer
+    from repro_torch.parallel import MeshContext
+
+    out: dict = {}
+    src = str(Path(__file__).resolve().parent / "src")
+    env = dict(os.environ, PYTHONPATH=src + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    # -- 34 (started). the dry run on the production meshes: each cell in a process of
+    # its own (a fake world cannot share a process with a real one), on the host only,
+    # at the lowest priority, while phases 32-33 run ------------------------------------
+    t_dry = time.monotonic()
+    dry_dir = tempfile.TemporaryDirectory()
+    procs = [subprocess.Popen([sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+                               "--cell", cell, "--mesh", which, "--out", dry_dir.name],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env,
+                              preexec_fn=lambda: os.nice(19)) for arch, cell, which in SH_DRYRUN]
+    try:
+        # -- 32. a 1x1 mesh over NCCL, at full width and depth --------------------------
+        t_phase = time.monotonic()
+        mesh = make_local_mesh(1, 1)
+        assert dist.get_backend() == "nccl", dist.get_backend()
+        try:
+            cfg = get_config("internlm2-1.8b")
+            opt = make_optimizer(OptConfig(lr=3e-4, warmup_steps=1, total_steps=SH_STEPS),
+                                 layer_groups=stacked_layer_groups(cfg))
+            ds = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=SH_S, global_batch=SH_B))
+            batches = [to_device(ds.batch(s), dev) for s in range(SH_STEPS)]
+            init = make_train_state_fn(cfg, opt, device=dev)
+            single = _sh_train(torch, cfg, dev, make_train_step(cfg, opt), init, batches)
+            want = [(p, t.clone()) for p, t in T.leaves_with_paths(single.pop("state")["params"])]
+            torch.cuda.empty_cache()
+            shapes = abstract_params(cfg)
+            template = {"params": shapes, "opt": opt.init(shapes),
+                        "step": torch.zeros((), dtype=torch.int32, device="meta")}
+            fn, _ = jit_train_step(cfg, opt, MeshContext(mesh, make_rules(cfg)), template,
+                                   batches[0])
+            placed = _sh_train(torch, cfg, dev, fn, init, batches)
+            got = [(p, t.to_local()) for p, t in T.leaves_with_paths(placed.pop("state")["params"])]
+            bitwise = placed["losses"] == single["losses"] and all(
+                torch.equal(g, w) for (_p, g), (_q, w) in zip(got, want))
+            lrel = max(abs(a - b) / abs(b) for a, b in zip(placed["losses"], single["losses"]))
+            prel, where = _sh_params_within(got, [w for _p, w in want])
+            del got, want
+            torch.cuda.empty_cache()
+            assert placed["launches"] == single["launches"], (placed["launches"],
+                                                              single["launches"])
+            assert placed["launches"][0] == {"rmsnorm_fwd": 97, "rmsnorm_bwd": 49,
+                                             "flash_attention_fwd": 48, "ssd_scan_fwd": 0,
+                                             "fused_map": 0, "fused_reduce": 0, "fused": {}}, \
+                placed["launches"][0]
+            if bitwise:
+                say(f"[sharded-1x1] internlm2-1.8b, bf16, {SH_STEPS} AdamW steps of {SH_B} "
+                    f"x {SH_S} through jit_train_step on a 1x1 mesh over NCCL: losses "
+                    f"{placed['losses']} and "
+                    f"every parameter bitwise equal to make_train_step's")
+            else:
+                say(f"[sharded-1x1] NOT bitwise: losses {placed['losses']} against "
+                    f"{single['losses']} (rel {lrel:.2e}); parameters at {prel:.3f} of the SPMD "
+                    f"bound, the worst at {where}; held to the reference's SPMD bounds")
+                assert lrel <= SH_LOSS_RTOL and prel <= 1.0, (lrel, prel, where)
+            med = statistics.median(placed["times"][1:])
+            med0 = statistics.median(single["times"][1:])
+            say(f"[sharded-1x1] {card}: step {med:.4f}s placed against {med0:.4f}s single-device "
+                f"(median of the steps after the first); K2/K3/K4 launches a step "
+                f"{placed['launches'][0]}, as the single-device step's")
+            out["train_sharded_1x1"] = placed["launches"][-1]
+            del placed, single
+            torch.cuda.empty_cache()
+
+            # serving gemma3-1b through jit_prefill and jit_decode_step
+            scfg = get_config("gemma3-1b")
+            params = init_params(scfg, seed=0, device=dev)
+            prompts = make_prompts(scfg, SH_SERVE_B, SH_S, dev)
+            max_len = SH_S + SH_GEN
+            pre, dec = make_serve_fns(scfg, max_len)
+            ctx = MeshContext(mesh, make_rules(scfg))
+            fp, _ = jit_prefill(scfg, ctx, max_len, params, {"tokens": prompts})
+
+            def serve(prefill_fn, decode_fn):
+                reset_launches()
+                with torch.no_grad():
+                    lg, caches = prefill_fn(params, prompts)
+                    counts = {"prefill": _launch_counts()}
+                    logits = [lg]
+                    for i in range(SH_GEN):
+                        token = logits[-1].argmax(-1).to(torch.int32)
+                        lg, caches = decode_fn(params, caches, token, SH_S + i)
+                        logits.append(lg)
+                counts["total"] = _launch_counts()
+                return logits, caches, counts
+
+            want_lg, caches0, want_counts = serve(pre, dec)
+            fd, _, _ = jit_decode_step(scfg, ctx, max_len, params, caches0, SH_SERVE_B)
+            del caches0
+            got_lg, _c, got_counts = serve(fp, fd)
+            del _c
+            same = all(torch.equal(a, b) for a, b in zip(got_lg, want_lg))
+            err = max((a - b).abs().max().item() for a, b in zip(got_lg, want_lg))
+            assert got_counts == want_counts, (got_counts, want_counts)
+            assert got_counts["prefill"] == {"rmsnorm_fwd": 53, "rmsnorm_bwd": 0,
+                                             "flash_attention_fwd": 26, "ssd_scan_fwd": 0,
+                                             "fused_map": 0, "fused_reduce": 0, "fused": {}}, \
+                got_counts
+            assert same, f"gemma3 logits not bitwise: max |diff| {err:.3e}"
+            say(f"[sharded-1x1] gemma3-1b, bf16, prompt {SH_SERVE_B} x {SH_S} and {SH_GEN} greedy "
+                f"steps through jit_prefill and jit_decode_step: every logit bitwise equal to the "
+                f"single-device path's; launches {got_counts} (K2 53 and K4 26 a prefill); phase "
+                f"{time.monotonic() - t_phase:.1f}s")
+            out["serve_sharded_1x1"] = got_counts["total"]
+            del params, got_lg, want_lg
+            torch.cuda.empty_cache()
+        finally:
+            dist.destroy_process_group()
+
+        # -- 33. two ranks sharing the card over gloo --------------------------------------
+        say(f"[sharded-2rank] the two-rank runs cut internlm2-1.8b's depth to {SH_LAYERS} of its "
+            f"24 layers (every width kept) so that both ranks' states fit the card with their "
+            f"single-device references")
+        run2 = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node",
+                "2"]
+        for data, model in ((2, 1), (1, 2)):
+            t_phase = time.monotonic()
+            with tempfile.TemporaryDirectory() as ck:
+                cmd = run2 + ["-m", "repro_torch.launch.train", "--compiler", "torch", "--arch",
+                              "internlm2-1.8b", "--batch", str(SH_B), "--seq", str(SH_S),
+                              "--data-mesh", str(data), "--model-mesh", str(model), "--steps",
+                              str(SH_STEPS), "--n-layers", str(SH_LAYERS), "--ckpt-every", "1000",
+                              "--ckpt-dir", ck]
+                res = subprocess.run(cmd, capture_output=True, text=True, env=env, timeout=400)
+                assert res.returncode == 0, res.stderr[-6000:]
+                reports = sorted((json.loads(line.split(" ", 1)[1]) for line in
+                                  res.stdout.splitlines() if line.startswith("SHARDED_RANK ")),
+                                 key=lambda r: r["rank"])
+                assert sorted(os.listdir(ck)) == ["rank0", "rank1"], os.listdir(ck)
+            assert [r["rank"] for r in reports] == [0, 1], res.stdout[-3000:]
+            for r in reports:
+                assert r["backend"] == "gloo" and r["device"].startswith("cuda"), r
+                assert r["steps"] == SH_STEPS and all(math.isfinite(x) for x in r["losses"]), r
+                # the launcher reads and resets its counters after each step
+                assert len(r["launches"]) == SH_STEPS and all(
+                    c == r["launches"][-1] for c in r["launches"]), r["launches"]
+            assert reports[0]["losses"] == reports[1]["losses"], reports
+            say(f"[sharded-launch-{data}x{model}] python -m torch.distributed.run -m "
+                f"repro_torch.launch.train --compiler torch --arch internlm2-1.8b --batch {SH_B} "
+                f"--seq {SH_S} --data-mesh {data} --model-mesh {model} --steps {SH_STEPS} "
+                f"--n-layers {SH_LAYERS}: losses {reports[0]['losses']} on both ranks; steps "
+                f"{[[round(t, 3) for t in r['step_s']] for r in reports]}s; launches a step, "
+                f"each rank {[r['launches'][-1] for r in reports]}; phase "
+                f"{time.monotonic() - t_phase:.1f}s")
+            out[f"train_launch_{data}x{model}"] = reports[0]["launches"][-1]
+
+        for data, model in ((2, 1), (1, 2)):
+            t_phase = time.monotonic()
+            cmd = run2 + [str(Path(__file__).resolve()), "--sharded-rank",
+                          json.dumps({"data": data, "model": model})]
+            # a crash of a rank prints its Python stacks
+            res = subprocess.run(cmd, capture_output=True, text=True,
+                                 env=dict(env, PYTHONFAULTHANDLER="1"), timeout=600)
+            assert res.returncode == 0, res.stderr[-6000:]
+            checks = sorted((json.loads(line.split(" ", 1)[1]) for line in res.stdout.splitlines()
+                             if line.startswith("SHARDED_CHECK ")), key=lambda r: r["rank"])
+            assert [c["rank"] for c in checks] == [0, 1], res.stdout[-3000:]
+            for c in checks:
+                say(f"[sharded-{data}x{model}] rank {c['rank']}: internlm2 f32 ({SH_LAYERS} "
+                    f"layers) "
+                    f"losses within {c['loss_rel']:.2e} of the single-device step (rtol "
+                    f"{SH_LOSS_RTOL}), parameters at {c['param_within']:.3f} of their bound (worst "
+                    f"{c['param_where']}); step {c['step_s']}s against {c['single_step_s']}s "
+                    f"on one "
+                    f"rank alone; launches a step {c['launches']}"
+                    + (f"; mamba2-370m prefill in f32, K5 on {c['mamba']['local_heads']} local "
+                       f"heads: max_abs_err {c['mamba']['err']:.3e} vs the single-device "
+                       f"logits, {c['mamba']['rel']:.2e} of the largest (bound "
+                       f"{MAMBA_F32_REL_BOUND}; within TOL['float32']: "
+                       f"{c['mamba']['within_tol']}); the plain chunked path cut the same "
+                       f"way: {c['mamba']['plain_err']:.3e}, {c['mamba']['plain_rel']:.2e}; "
+                       f"launches {c['mamba']['launches']}"
+                       if c.get("mamba") else ""))
+            trace = checks[0]["trace"]
+            assert trace and trace["wall_ms"] > 0 and trace["device_busy_ms"] > 0, trace
+            say(f"[sharded-{data}x{model}] {card}: rank 0's last step under torch.profiler: wall "
+                f"{trace['wall_ms']:.1f} ms; collectives {trace['collective_ms']:.1f} ms "
+                f"({trace['collective_share']:.1%}) {trace['collectives']} [calls, ms]; card busy "
+                f"{trace['device_busy_ms']:.1f} ms (idle {trace['device_idle_share']:.1%}); "
+                f"heaviest on the card {trace['top_device']}; on the host {trace['top_host']}; "
+                f"phase {time.monotonic() - t_phase:.1f}s")
+            out[f"train_sharded_{data}x{model}"] = checks[0]["launches"]
+            if checks[0].get("mamba"):
+                out[f"serve_mamba2_sharded_{data}x{model}"] = checks[0]["mamba"]["launches"]
+
+    # -- 34 (collected). the dry run's processes, started before phase 32 ----------------
+        records = []
+        for (arch, cell, _w), p in zip(SH_DRYRUN, procs):
+            stdout, stderr = p.communicate(timeout=900)
+            assert p.returncode == 0, (arch, cell, stdout[-3000:], stderr[-3000:])
+            rec = [json.loads(line.split(" ", 1)[1]) for line in stdout.splitlines()
+                   if line.startswith("DRYRUN ")]
+            assert len(rec) == 1, stdout[-2000:]
+            records.append(rec[0])
+            say(f"[dryrun] {json.dumps(rec[0])}")
+    finally:  # every process this phase started ends here
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        dry_dir.cleanup()
+    say(f"[dryrun] {len(records)} cells built on fake meshes, nothing allocated; "
+        f"{time.monotonic() - t_dry:.1f}s from their start, beside phases 32-33")
+    return out
+
+
+def sharded_rank(argv_json: str) -> int:
+    """Phase 33's rank program, started from this script by ``torch.distributed.run``
+    on a mesh of two ranks sharing the card over gloo: internlm2-1.8b in f32 at full
+    width (depth cut to SH_LAYERS), SH_STEPS AdamW steps through ``jit_train_step``
+    against ``make_train_step`` on this rank alone from the same state and batches;
+    on a 1x2 mesh also mamba2-370m's prefill in f32 through ``jit_prefill`` against
+    the single-device prefill, on the kernels and on the plain chunked path.  Rank 0
+    runs its last placed step under ``torch.profiler``.  Prints one ``SHARDED_CHECK``
+    JSON line."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    from repro_torch import tree as T
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLM, to_device
+    from repro_torch.distributed import (
+        jit_prefill, jit_train_step, make_rules, make_train_state_fn, make_train_step, place)
+    from repro_torch.kernels import reset_launches
+    from repro_torch.launch.mesh import line_out, make_local_mesh
+    from repro_torch.launch.serve import make_prompts
+    from repro_torch.models import init_params
+    from repro_torch.models.model import prefill, stacked_layer_groups
+    from repro_torch.optim import OptConfig, make_optimizer
+    from repro_torch.parallel import MeshContext
+
+    args = json.loads(argv_json)
+    data, model = args["data"], args["model"]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = make_local_mesh(data, model)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    rank = dist.get_rank()
+    assert dist.get_backend() == "gloo", dist.get_backend()
+    cfg = _sh_train_cfg("float32", SH_LAYERS)
+    opt = make_optimizer(OptConfig(lr=3e-4, warmup_steps=1, total_steps=SH_STEPS),
+                         layer_groups=stacked_layer_groups(cfg))
+    ds = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=SH_S, global_batch=SH_B))
+    batches = [to_device(ds.batch(s), dev) for s in range(SH_STEPS)]
+    init = make_train_state_fn(cfg, opt, device=dev)
+    single = _sh_train(torch, cfg, dev, make_train_step(cfg, opt), init, batches)
+    want = [t.clone() for t in T.leaves(single.pop("state")["params"])]
+    torch.cuda.empty_cache()
+    fn, _ = jit_train_step(cfg, opt, MeshContext(mesh, make_rules(cfg)), init(), batches[0])
+    traced = SH_STEPS - 1 if rank == 0 else None
+    placed = _sh_train(torch, cfg, dev, fn, init, batches, trace_step=traced)
+    # each rank holds its own blocks against the same blocks of the single-device
+    # parameters (cut as ``place`` cuts a plain tensor, with no communication); a
+    # DTensor's full_tensor() would gather through the functional collective, which
+    # crashes over gloo on CUDA tensors (scripts/gloo_cuda_gather.py)
+    got, local_want = [], []
+    for (p, t), w in zip(T.leaves_with_paths(placed.pop("state")["params"]), want, strict=True):
+        got.append((p, t.to_local()))
+        local_want.append(place(w, t.placements, mesh).to_local())
+    prel, where = _sh_params_within(got, local_want)
+    lrel = max(abs(a - b) / abs(b) for a, b in zip(placed["losses"], single["losses"]))
+    del got, want, local_want
+    torch.cuda.empty_cache()
+    report = {"rank": rank, "mesh": [data, model], "loss_rel": lrel, "param_within": prel,
+              "param_where": where, "losses": placed["losses"],
+              "launches": placed["launches"][-1],
+              # the steps after the first, the profiled one left out
+              "step_s": round(statistics.median(placed["times"][1:traced]), 4),
+              "single_step_s": round(statistics.median(single["times"][1:]), 4),
+              "trace": placed["trace"]}
+    assert lrel <= SH_LOSS_RTOL and prel <= 1.0, report
+    if model == 2:
+        mcfg = dataclasses.replace(get_config("mamba2-370m"), param_dtype="float32",
+                                   compute_dtype="float32")
+        params = init_params(mcfg, seed=0, device=dev)
+        prompts = make_prompts(mcfg, SH_SERVE_B, SH_S, dev)
+        ctx = MeshContext(mesh, make_rules(mcfg))
+        errs = {}
+        # the kernel path (K5 on this rank's 16 heads) and, as the witness of where the
+        # gap comes from, the plain chunked path, each against its own single-device run
+        for impl in ("chunked", None):
+            with torch.no_grad():
+                want_lg = prefill(mcfg, params, prompts, SH_S, impl=impl)[0]
+            fp, _ = jit_prefill(mcfg, ctx, SH_S, params, {"tokens": prompts}, impl=impl)
+            reset_launches()
+            got_lg = fp(params, prompts)[0]
+            torch.cuda.synchronize()
+            launches = _launch_counts()
+            errs[impl or "kernel"] = (got_lg - want_lg).abs().max().item()
+        err, scale = errs["kernel"], want_lg.abs().max().item()
+        # 1x2 sums out_proj in two halves over the model axis (and cuBLAS splits in_proj
+        # and the vocab product by columns), and mamba2's 48 gated layers amplify such a
+        # reordering as they amplify the chunked scan's against the stepwise one (phase
+        # 15): so the bound is phase 15's f32 bound, relative to the largest logit.  The
+        # plain chunked path, with no kernel, is cut the same way: the kernel path's gap
+        # must stay within 4x of the plain path's.  Whether TOL["float32"] (rtol = atol =
+        # 2e-5, elementwise) would hold is printed.
+        within_tol = bool(torch.allclose(got_lg, want_lg, **TOL["float32"]))
+        report["mamba"] = {"err": err, "rel": err / scale, "within_tol": within_tol,
+                           "plain_err": errs["chunked"], "plain_rel": errs["chunked"] / scale,
+                           "launches": launches, "local_heads": mcfg.n_ssm_heads // model}
+        assert err / scale <= MAMBA_F32_REL_BOUND, report["mamba"]
+        assert err <= 4 * errs["chunked"], report["mamba"]
+    line_out("SHARDED_CHECK " + json.dumps(report))
+    # the group ends as the launcher's does, and a crash here fails the phase
+    dist.barrier()
+    torch.cuda.synchronize()
+    dist.destroy_process_group()
+    return 0
 
 
 def main() -> int:
@@ -2629,12 +3064,45 @@ def main() -> int:
         got = [(kind, members) for kind, _b, members, _n, _by in info["plan"]]
         assert got == myia_info["clusters"], (path, got, myia_info["clusters"])
         assert len(info["launches"]) == len(info["errs"]) == len(got), (path, info)
-        for kname, n, (err, u), (kind, body, members, per_call, nbytes) in zip(
+        for kname, n, (err, u, ms, lib_ms), (kind, body, members, per_call, nbytes) in zip(
                 myia_info["names"], info["launches"], info["errs"], info["plan"]):
             records[kname].setdefault("per_shard", []).append({
                 "path": path, "kind": kind, "body_shape": list(body), "members": members,
                 "launches": n, "launches_per_call": per_call, "max_abs_err": err, "ulps": u,
+                "ms": ms, "library_ms": lib_ms,
                 "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes"})
+
+    # -- 32-34. the model zoo under a mesh -------------------------------------------
+    sharded_counts = sharded_phases(torch, dev, f"{name} ({smi})")
+    # the kernels at the local shapes the two-rank runs give them (phase 33), by phase
+    # 21's method, each beside its launches a step on each rank of its run
+    keys = ("max_abs_err", "ms", "call_ms", "host_us", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
+    half, width = SH_B // 2, 2048
+    rows = f"2x1 rank's rows ({half},{SH_S},{width}) bf16"
+    rec = rms_case(randn(half, SH_S, width, dtype=torch.bfloat16), 1 + 0.1 * randn(width))
+    records["rmsnorm_fwd"].setdefault("at_shapes", []).append(
+        {"shape": rows, "launches_a_step": sharded_counts["train_launch_2x1"]["rmsnorm_fwd"],
+         **{k: rec[k] for k in keys}})
+    rec = rms_bwd_case(randn(half, SH_S, width, dtype=torch.bfloat16), 1 + 0.1 * randn(width),
+                       randn(half, SH_S, width, dtype=torch.bfloat16))
+    records["rmsnorm_bwd"].setdefault("at_shapes", []).append(
+        {"shape": rows,
+         "launches_a_step": sharded_counts["train_launch_2x1"]["rmsnorm_bwd"],
+         **{k: rec[k] for k in keys}})
+    for label, (B_, H_, KVH_), path in (("2x1 rank's batch", (half, 16, 8), "train_launch_2x1"),
+                                       ("1x2 rank's heads", (SH_B, 8, 4), "train_launch_1x2")):
+        row = fa_xattn_case(f"{label}, causal", randn(B_, H_, SH_S, 128, dtype=torch.bfloat16),
+                            randn(B_, KVH_, SH_S, 128, dtype=torch.bfloat16),
+                            randn(B_, KVH_, SH_S, 128, dtype=torch.bfloat16), True)
+        records["flash_attention_fwd"].setdefault("at_shapes", []).append(
+            {**row, "launches_a_step": sharded_counts[path]["flash_attention_fwd"]})
+    rec = ssd_case(*ssd_inputs(SH_SERVE_B, SH_S, 16, 64, 1, 128, torch.float32), timed=True)
+    records["ssd_scan_fwd"].setdefault("at_shapes", []).append(
+        {"shape": "1x2 rank's 16 of mamba2's 32 heads, f32", "launches_a_prefill":
+         sharded_counts["serve_mamba2_sharded_1x2"]["ssd_scan_fwd"],
+         **{k: rec[k] for k in keys}})
+    torch.cuda.empty_cache()
 
     # -- records ---------------------------------------------------------------
     # times at the training shapes (K2, K3, K4) and the mamba2 serving shape (K5);
@@ -2653,6 +3121,11 @@ def main() -> int:
         names = myia_info["names"]
         return spmd_paths[path]["launches"][names.index(rec["name"])] if rec["name"] in names \
             else 0
+    def sharded_launches(counts, rec):
+        """A kernel's launches on a placed path (phases 32-33), from every counter read
+        there: K2-K5 by their own, K1's generated kernels from ``fused``."""
+        return counts[rec["name"]] if rec["name"] in counts else counts["fused"].get(
+            rec["name"], 0)
     kernels_line = [
         {**{key: rec[key] for key in ("name", "route", "source", "replaces", "launches",
                                       "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -2669,7 +3142,9 @@ def main() -> int:
                               "serve_myia_fused": launches_on(
                                   serve_myia_counts["serve_myia_fused"], serve_myia_fused,
                                   rec),
-                              **{path: spmd_launches(path, rec) for path in spmd_paths}},
+                              **{path: spmd_launches(path, rec) for path in spmd_paths},
+                              **{path: sharded_launches(c, rec)
+                                 for path, c in sharded_counts.items()}},
          **({key: rec[key] for key in ("at_shapes", "per_shard") if key in rec})}
         for rec in records.values()
     ]
@@ -2683,5 +3158,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(spmd_rank(sys.argv[2], int(sys.argv[3])) if sys.argv[1:2] == ["--spmd-rank"]
-             else main())
+    if sys.argv[1:2] == ["--spmd-rank"]:
+        sys.exit(spmd_rank(sys.argv[2], int(sys.argv[3])))
+    sys.exit(sharded_rank(sys.argv[2]) if sys.argv[1:2] == ["--sharded-rank"] else main())

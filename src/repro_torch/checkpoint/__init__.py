@@ -52,6 +52,8 @@ def _to_host(tree: Any) -> list[tuple[str, str, np.ndarray]]:
     for path, leaf in T.leaves_with_paths(tree):
         if not isinstance(leaf, torch.Tensor):
             raise TypeError(f"checkpoint leaves are tensors; {_path_str(path)} is {type(leaf)}")
+        if hasattr(leaf, "placements"):  # a DTensor: this rank's shard
+            leaf = leaf.to_local()
         t = leaf.detach().to("cpu", copy=True)  # a snapshot, whatever later changes the leaf
         name = _dtype_name(t)
         if name not in _DTYPES:
@@ -143,7 +145,13 @@ def restore(
     leaves = []
     for entry, (_, tgt) in zip(manifest["leaves"], targets):
         dev = device if device is not None else tgt.device
-        leaves.append(_load_leaf(d, entry).to(dev))
+        t = _load_leaf(d, entry).to(dev)
+        if hasattr(tgt, "placements"):  # a DTensor target: the file holds this rank's shard
+            from torch.distributed.tensor import DTensor
+
+            t = DTensor.from_local(t, tgt.device_mesh, tgt.placements, run_check=False,
+                                   shape=tgt.shape, stride=tgt.stride())
+        leaves.append(t)
     return step, T.unflatten(target, leaves)
 
 

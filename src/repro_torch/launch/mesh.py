@@ -22,11 +22,37 @@ __all__ = [
 ]
 
 
+#: ranks of the fake world the production meshes live in: enough for 2×16×16
+FAKE_WORLD = 512
+
+
 def make_production_mesh(*, multi_pod: bool = False):
-    """The reference's 16×16 (or 2×16×16) pod mesh: ROADMAP item A9b."""
-    raise NotImplementedError(
-        "make_production_mesh waits for the model zoo's sharded tier (ROADMAP item A9b)"
-    )
+    """16×16 = 256 chips per pod (single pod) or 2×16×16 = 512 chips, as the
+    reference's, over torch's ``fake`` process group: a world of
+    :data:`FAKE_WORLD` ranks in this one process, in which this process is rank 0
+    and every collective returns at once.  It is for the dry run
+    (``repro_torch.launch.dryrun``), under ``FakeTensorMode``: nothing is
+    allocated or sent.  A fake world cannot share a process with a real one: this
+    raises if another process group is up.
+
+    Axes: ``pod``, data-parallel across the cross-pod links; ``data``, the batch,
+    FSDP and ZeRO axis; ``model``, the tensor and expert parallel axis, kept
+    innermost."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    if not dist.is_initialized():
+        dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=FAKE_WORLD)
+    elif dist.get_backend() != "fake":
+        raise RuntimeError("the production mesh lives in a fake world; this process has a "
+                           f"{dist.get_backend()} process group")
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    n = 1
+    for s in shape:
+        n *= s
+    return DeviceMesh("cpu", torch.arange(n).reshape(shape), mesh_dim_names=axes)
 
 
 def line_out(msg: str) -> None:
@@ -81,9 +107,13 @@ def make_local_mesh(data: int = 1, model: int = 1, *, device: str | torch.device
     too few devices).  Without a process group it joins the one a
     ``torch.distributed.run`` launch describes in its environment, or starts a
     world of one for a 1×1 mesh (:func:`init_distributed`: NCCL on the card, the
-    default ``device``, gloo on the CPU)."""
+    default ``device``, gloo on the CPU).  Over gloo on the card, the mesh's
+    shards are gathered with c10d's collective
+    (:func:`repro_torch.parallel.gather_through_c10d`)."""
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.parallel import gather_through_c10d
 
     device = torch.device(device)
     if not dist.is_initialized():
@@ -96,4 +126,7 @@ def make_local_mesh(data: int = 1, model: int = 1, *, device: str | torch.device
     if data * model != world:
         raise ValueError(f"a {data}x{model} mesh needs {data * model} ranks, the world has "
                          f"{world}")
-    return init_device_mesh(device.type, (data, model), mesh_dim_names=("data", "model"))
+    mesh = init_device_mesh(device.type, (data, model), mesh_dim_names=("data", "model"))
+    if device.type == "cuda" and dist.get_backend() == "gloo":
+        gather_through_c10d(mesh)
+    return mesh

@@ -24,7 +24,10 @@ oracle; ``--check-oracle`` runs the engine AND the oracle and asserts the
 token streams are identical.  Under ``--data-mesh``/``--model-mesh`` > 1 (one
 process a rank, ``python -m torch.distributed.run``) the full-prefix path runs
 the LM forward on the SPMD tier, batch data-parallel and the vocab projection
-model-parallel; the engine stays on one device, as the reference's does::
+model-parallel; the engine stays on one device, as the reference's does.
+``--compiler torch`` serves on one device whatever the mesh flags say, as the
+reference's ``--compiler jax`` does (the model zoo's placed prefill and decode
+are ``repro_torch.distributed.jit_prefill`` and ``jit_decode_step``)::
 
     PYTHONPATH=src python -m repro_torch.launch.serve --compiler myia \
         --batch 4 --prompt-len 1024 --gen 32 --check-oracle
@@ -193,10 +196,10 @@ def main(argv=None) -> int:
     args = parse_args(argv)
     cfg = get_config(args.arch, reduced=args.reduced)
     if args.data_mesh * args.model_mesh > 1 and args.compiler != "myia":
-        raise NotImplementedError(
-            "--compiler torch under --data-mesh/--model-mesh waits for the model zoo's "
-            "sharded prefill and decode (ROADMAP item A9b)"
-        )
+        # as the reference's serve: the mesh flags shard only the Myia runtime;
+        # the model zoo serves on one device
+        print(f"--compiler torch serves on one device; --data-mesh {args.data_mesh} "
+              f"--model-mesh {args.model_mesh} apply to --compiler myia")
     if args.compiler == "myia":
         if args.full_prefix or args.data_mesh * args.model_mesh > 1:
             serve_myia_full_prefix(args, cfg)

@@ -30,12 +30,23 @@ Each rank takes ``cuda:{LOCAL_RANK % device_count}``.  The backend follows the
 topology and is printed: NCCL when every rank has a card of its own, gloo when
 ranks share a card (NCCL refuses two ranks on one device) or with ``--device cpu``.
 Each rank checkpoints its (replicated) state under ``<ckpt-dir>/rank<r>``.
-``--compiler torch`` under a mesh waits for ROADMAP item A9b.
+
+``--compiler torch`` under a mesh runs the model zoo's placed step
+(``repro_torch.distributed.jit_train_step``): parameters and optimizer state as
+DTensors placed by the reference's logical-axis rules, the batch on the data
+axis, the kernels on each rank's local shards.  Every rank draws the same global
+state from the seed and keeps its own blocks; it checkpoints those shards under
+``<ckpt-dir>/rank<r>`` and prints a ``SHARDED_RANK`` JSON line (each
+step's kernel launches, step times, losses)::
+
+    PYTHONPATH=src python -m torch.distributed.run --standalone --nproc-per-node 2 \
+        -m repro_torch.launch.train --data-mesh 2 --steps 3 --batch 8 --seq 1024
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import statistics
@@ -67,6 +78,8 @@ def main(argv=None) -> int:
     )
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    ap.add_argument("--n-layers", type=int, default=None,
+                    help="cut the arch's depth to this many layers (its widths stay)")
     ap.add_argument("--data-mesh", type=int, default=1, help="data axis size (ranks)")
     ap.add_argument("--model-mesh", type=int, default=1, help="model axis size (ranks)")
     ap.add_argument(
@@ -80,12 +93,9 @@ def main(argv=None) -> int:
 
     device = resolve_device(args.device)
     cfg = get_config(args.arch, reduced=args.reduced)
+    if args.n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=args.n_layers)
     ds = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=args.seq, global_batch=args.batch))
-    if args.data_mesh * args.model_mesh > 1 and args.compiler != "myia":
-        raise NotImplementedError(
-            "--compiler torch under --data-mesh/--model-mesh waits for the model zoo's "
-            "sharded train step (ROADMAP item A9b)"
-        )
     if args.compiler == "myia":
         return _train_myia(args, cfg, ds, device)
     opt = make_optimizer(
@@ -93,6 +103,8 @@ def main(argv=None) -> int:
                   total_steps=args.steps),
         layer_groups=stacked_layer_groups(cfg),
     )
+    if args.data_mesh * args.model_mesh > 1:
+        return _train_sharded(args, cfg, ds, device, opt)
     init_fn = make_train_state_fn(cfg, opt, device=device)
     step_fn = make_train_step(cfg, opt)
 
@@ -125,6 +137,72 @@ def main(argv=None) -> int:
         f"\ndone: {result.final_step} steps on {device}, loss {first:.4f} → {last:.4f}, "
         f"{result.restarts} restarts, {len(result.straggler_events)} straggler flags"
     )
+    return 0
+
+
+def _train_sharded(args, cfg, ds, device, opt) -> int:
+    """The model zoo's step on a ``(data, model)`` mesh: this process is one rank.
+    The state is placed by ``state_shardings``; the loop checkpoints this rank's
+    shards under ``<ckpt-dir>/rank<r>`` and restores them at the same placements."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.distributed import jit_train_step, make_rules, place
+    from repro_torch.kernels import FUSED_LAUNCHES, LAUNCHES, reset_launches
+    from repro_torch.launch.mesh import line_out, make_local_mesh
+    from repro_torch.models.model import abstract_params
+    from repro_torch.parallel import MeshContext
+
+    mesh = make_local_mesh(args.data_mesh, args.model_mesh, device=device)
+    if device.type == "cuda":
+        device = torch.device("cuda", torch.cuda.current_device())
+    rank = dist.get_rank()
+    who = {"rank": rank, "world": dist.get_world_size(),
+           "mesh": [args.data_mesh, args.model_mesh], "backend": dist.get_backend(),
+           "device": str(device)}
+    tag = f"[torch/sharded {args.data_mesh}x{args.model_mesh} rank {rank}/{who['world']}] "
+    line_out(f"{tag}backend {who['backend']} on {device}"
+             f"{f' ({torch.cuda.get_device_name(device)})' if device.type == 'cuda' else ''}")
+    ctx = MeshContext(mesh, make_rules(cfg))
+    shapes = abstract_params(cfg)
+    template = {"params": shapes, "opt": opt.init(shapes),
+                "step": torch.zeros((), dtype=torch.int32, device="meta")}
+    step_fn, st_sh = jit_train_step(cfg, opt, ctx, template, to_device(ds.batch(0), device))
+    marks, launches = [time.monotonic()], []
+
+    def on_step(step, metrics):
+        marks.append(time.monotonic())
+        # each step's kernel launches: the counters are read and reset after it
+        launches.append({**LAUNCHES, "fused": dict(FUSED_LAUNCHES)})
+        reset_launches()
+        if step % 10 == 0:
+            line_out(f"{tag}step {step:5d} loss {float(metrics['loss']):.4f} "
+                     f"gnorm {float(metrics['gnorm']):.3f} ({(marks[-1] - marks[0]):.1f}s)")
+
+    reset_launches()
+    try:
+        result = train_loop(
+            TrainLoopConfig(total_steps=args.steps, checkpoint_every=args.ckpt_every,
+                            checkpoint_dir=os.path.join(args.ckpt_dir, f"rank{rank}")),
+            step_fn,
+            make_train_state_fn(cfg, opt, device=device),
+            lambda s: to_device(ds.batch(s), device),
+            device=device,
+            on_step=on_step,
+            place=lambda s: place(s, st_sh, mesh),
+        )
+    finally:
+        dist.destroy_process_group()
+    step_s = [b - a for a, b in zip(marks, marks[1:])]
+    timed = step_s[1:] or step_s
+    report = {**who, "launches": launches, "step_s": step_s,
+              "steps": result.final_step, "restarts": result.restarts,
+              "losses": result.losses}
+    line_out(f"\n{tag}done [torch/sharded]: {result.final_step} steps on {device}, loss "
+             f"{result.losses[0]:.4f} → {np.mean(result.losses[-10:]):.4f}, "
+             f"{result.restarts} restarts; step time median {statistics.median(timed):.4f}s; "
+             f"kernel launches of the last step {launches[-1] if launches else {}}")
+    line_out(f"SHARDED_RANK {json.dumps(report)}")
     return 0
 
 

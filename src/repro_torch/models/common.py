@@ -170,6 +170,8 @@ def dense_init(
     ``jax.random``'s for the same seed; tests carry weights across instead."""
     fi = fan_in if fan_in is not None else shape[0]
     t = torch.empty(tuple(shape), dtype=torch.float32, device=gen.device)
+    if t.is_meta:  # a shape only (``model.abstract_params``)
+        return t.to(dtype)
     torch.nn.init.trunc_normal_(t, a=-2.0, b=2.0, generator=gen)
     return (t * fi**-0.5).to(dtype)
 

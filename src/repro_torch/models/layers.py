@@ -9,6 +9,12 @@ hd)`` and ``wo`` is ``(H, hd, D)``; q/k/v are ``(B, heads, S, hd)``; the Mamba
 mixer's ``in_proj`` is ``(D, 2·DI + 2·N + NH)`` (``[z, x, B, C, dt]``) and
 ``conv_w`` ``(K, DI + 2·N)``.  ``impl`` is passed to the kernel ops (``"ref"``
 runs the plain versions on any device).
+
+Activation sharding is expressed through *logical* axis names via
+:func:`repro_torch.parallel.constrain`, at the reference's 16 sites; without a
+mesh context it is the identity.  Under one, the model runs on DTensors and every
+kernel call goes through :mod:`.boundary`, which hands the kernels plain local
+shards.
 """
 
 from __future__ import annotations
@@ -19,6 +25,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch import kernels
+from repro_torch.parallel import constrain, constrain_as, zeros
+from . import boundary
 from .common import ModelConfig, apply_rope, dense_init, softcap
 
 Params = dict[str, Any]
@@ -35,7 +43,7 @@ def norm_init(cfg: ModelConfig, device: torch.device) -> torch.Tensor:
 def norm_apply(
     cfg: ModelConfig, w: torch.Tensor, x: torch.Tensor, *, impl: str | None = None
 ) -> torch.Tensor:
-    return kernels.rmsnorm(x, w, eps=cfg.norm_eps, impl=impl)
+    return boundary.rmsnorm(x, w, eps=cfg.norm_eps, impl=impl)
 
 
 # ===========================================================================
@@ -54,23 +62,33 @@ def attn_init(cfg: ModelConfig, gen: torch.Generator) -> Params:
     }
 
 
-def _proj(cfg: ModelConfig, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """x (B, S, D) · w (D, heads, hd) → (B, heads, S, hd), contiguous."""
+def _proj(cfg: ModelConfig, x: torch.Tensor, w: torch.Tensor, axis: str) -> torch.Tensor:
+    """x (B, S, D) · w (D, heads, hd) → (B, heads, S, hd), contiguous.  Under a mesh
+    the product's columns are split over ``axis`` only where the heads divide it,
+    so that the split into (heads, hd) keeps whole heads on a rank."""
     B, S, D = x.shape
     _, heads, hd = w.shape
-    y = x.reshape(B * S, D) @ w.to(cfg.cdtype).reshape(D, heads * hd)
+    # (B, S, D) @ (D, heads·hd): matmul folds the rows into one GEMM, and under a
+    # mesh the batch dim keeps its shards (a flattened B·S would not)
+    y = x @ w.to(cfg.cdtype).reshape(D, heads * hd)
+    y = constrain_as(y, ("batch", "seq", axis), (B, S, heads))
     return y.reshape(B, S, heads, hd).transpose(1, 2).contiguous()
 
 
 def _qkv(cfg: ModelConfig, p: Params, x: torch.Tensor):
-    return _proj(cfg, x, p["wq"]), _proj(cfg, x, p["wk"]), _proj(cfg, x, p["wv"])
+    kv = ("batch", "kv_heads", "seq", "head_dim")
+    q = constrain(_proj(cfg, x, p["wq"], "heads"), "batch", "heads", "seq", "head_dim")
+    k = constrain(_proj(cfg, x, p["wk"], "kv_heads"), *kv)
+    v = constrain(_proj(cfg, x, p["wv"], "kv_heads"), *kv)
+    return q, k, v
 
 
 def _out(cfg: ModelConfig, p: Params, o: torch.Tensor) -> torch.Tensor:
     """o (B, H, S, hd) · wo (H, hd, D) → (B, S, D)."""
     B, H, S, hd = o.shape
     wo = p["wo"].to(cfg.cdtype).reshape(H * hd, -1)
-    return (o.transpose(1, 2).reshape(B * S, H * hd) @ wo).reshape(B, S, -1)
+    y = o.transpose(1, 2).reshape(B, S, H * hd) @ wo
+    return constrain(y, "batch", "seq", "embed")
 
 
 def attn_apply(
@@ -94,19 +112,23 @@ def attn_apply(
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     window = cfg.local_window if kind == "local" else None
-    o = kernels.flash_attention(q, k, v, causal=causal, window=window, impl=impl)
+    o = boundary.flash_attention(q, k, v, causal=causal, window=window, impl=impl)
+    o = constrain(o, "batch", "heads", "seq", "head_dim")
     return _out(cfg, p, o)
 
 
 def attn_cache_init(
     cfg: ModelConfig, batch: int, max_len: int, device: torch.device, *, kind: str = "global"
 ) -> Params:
-    """A local (sliding-window) cache is a ring of ``min(max_len, window)`` slots."""
+    """A local (sliding-window) cache is a ring of ``min(max_len, window)`` slots.
+    Under a mesh the caches are made in place, big ones sharded on the sequence."""
     size = min(max_len, cfg.local_window) if kind == "local" else max_len
     shape = (batch, cfg.n_kv_heads, size, cfg.hd)
+    seq_axis = "seq" if kind == "local" else "kv_seq"  # big caches shard on seq
+    axes = ("batch", "kv_heads", seq_axis, "head_dim")
     return {
-        "k": torch.zeros(shape, dtype=cfg.cdtype, device=device),
-        "v": torch.zeros(shape, dtype=cfg.cdtype, device=device),
+        "k": zeros(shape, cfg.cdtype, device, *axes),
+        "v": zeros(shape, cfg.cdtype, device, *axes),
     }
 
 
@@ -127,13 +149,16 @@ def attn_decode(
     B = x_t.shape[0]
     size = cache["k"].shape[2]
     positions = torch.full((1,), pos, device=x_t.device)  # a fill, not a host-to-device copy
-    q = apply_rope(_proj(cfg, x_t, p["wq"]), positions, cfg.rope_theta)
-    k_t = apply_rope(_proj(cfg, x_t, p["wk"]), positions, cfg.rope_theta)
-    v_t = _proj(cfg, x_t, p["wv"])
+    q = apply_rope(_proj(cfg, x_t, p["wq"], "heads"), positions, cfg.rope_theta)
+    k_t = apply_rope(_proj(cfg, x_t, p["wk"], "kv_heads"), positions, cfg.rope_theta)
+    v_t = _proj(cfg, x_t, p["wv"], "kv_heads")
 
     slot = pos % size if kind == "local" else pos
-    cache["k"][:, :, slot] = k_t[:, :, 0].to(cache["k"].dtype)
-    cache["v"][:, :, slot] = v_t[:, :, 0].to(cache["v"].dtype)
+    boundary.cache_put(cache["k"], slice(slot, slot + 1), k_t)
+    boundary.cache_put(cache["v"], slice(slot, slot + 1), v_t)
+    seq_axis = "seq" if kind == "local" else "kv_seq"
+    cache["k"] = constrain(cache["k"], "batch", "kv_heads", seq_axis, "head_dim")
+    cache["v"] = constrain(cache["v"], "batch", "kv_heads", seq_axis, "head_dim")
 
     # visibility: slot j holds absolute position p_j; attend iff 0 <= p_j <= pos
     j = torch.arange(size, device=x_t.device)
@@ -154,15 +179,19 @@ def attn_decode(
 def cross_cache_init(cfg: ModelConfig, p: Params, states: torch.Tensor) -> Params:
     """Cross-attention K/V projected once from the encoder states or image embeddings
     (B, S_kv, D): each (B, KVH, S_kv, hd)."""
-    return {"k": _proj(cfg, states, p["wk"]), "v": _proj(cfg, states, p["wv"])}
+    kv = ("batch", "kv_heads", "seq", "head_dim")
+    k = constrain(_proj(cfg, states, p["wk"], "kv_heads"), *kv)
+    v = constrain(_proj(cfg, states, p["wv"], "kv_heads"), *kv)
+    return {"k": k, "v": v}
 
 
 def cross_attn_apply(
     cfg: ModelConfig, p: Params, x: torch.Tensor, kv: Params, *, impl: str | None = None
 ) -> torch.Tensor:
     """Non-causal attention of x (B, S, D) over projected K/V (``cross_cache_init``)."""
-    q = _proj(cfg, x, p["wq"])
-    return _out(cfg, p, kernels.flash_attention(q, kv["k"], kv["v"], causal=False, impl=impl))
+    q = constrain(_proj(cfg, x, p["wq"], "heads"), "batch", "heads", "seq", "head_dim")
+    o = boundary.flash_attention(q, kv["k"], kv["v"], causal=False, impl=impl)
+    return _out(cfg, p, constrain(o, "batch", "heads", "seq", "head_dim"))
 
 
 def cross_attn_decode(cfg: ModelConfig, p: Params, x_t: torch.Tensor, cache: Params):
@@ -170,7 +199,7 @@ def cross_attn_decode(cfg: ModelConfig, p: Params, x_t: torch.Tensor, cache: Par
     grouped-head view, with no mask and no softcap, as in the reference."""
     B = x_t.shape[0]
     group = cfg.n_heads // cfg.n_kv_heads
-    q = _proj(cfg, x_t, p["wq"])
+    q = _proj(cfg, x_t, p["wq"], "heads")
     qg = q.to(torch.float32).reshape(B, cfg.n_kv_heads, group, 1, cfg.hd)
     s = torch.einsum("bkgqd,bksd->bkgqs", qg, cache["k"].to(torch.float32)) * (cfg.hd**-0.5)
     pattn = torch.softmax(s, dim=-1)
@@ -202,7 +231,8 @@ def _act(cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
 def mlp_apply(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
     h = x @ p["wi"].to(cfg.cdtype)
     g = x @ p["wg"].to(cfg.cdtype)
-    return (h * _act(cfg, g)) @ p["wo"].to(cfg.cdtype)
+    h = constrain(h * _act(cfg, g), "batch", "seq", "mlp")
+    return constrain(h @ p["wo"].to(cfg.cdtype), "batch", "seq", "embed")
 
 
 # ===========================================================================
@@ -264,19 +294,44 @@ def moe_apply(
 
     Assignments take slots in token-major, then k, order; those past an expert's C
     slots are dropped (the residual passes the token through).  Where ``routes`` is
-    given, the expert indices (G, Sg, K) are appended to it."""
+    given, the expert indices (G, Sg, K) are appended to it.
+
+    Under a mesh the dispatch and combine run on each rank's groups and experts
+    (``boundary.moe``), which takes the place of the reference's two constraints on
+    the gathered slots (its expert-parallel all-to-all)."""
+    E = cfg.num_experts
+
+    def core(xl, router, wi, wg, wo, e0, tokens):
+        return _moe_core(cfg, xl, router, wi, wg, wo, e0, tokens, full_capacity, routes)
+
+    y, me, ce = boundary.moe(core, x, p["router"], p["wi"], p["wg"], p["wo"],
+                             full_capacity=full_capacity)
+    aux = E * torch.sum(me * ce)  # load-balancing auxiliary loss (Switch/GShard)
+    y = y.to(cfg.cdtype)
+    if cfg.shared_experts:
+        y = y + mlp_apply(cfg, p["shared"], x)
+    return constrain(y, "batch", "seq", "embed"), aux
+
+
+def _moe_core(cfg: ModelConfig, x, router, wi, wg, wo, e0: int, tokens: int,
+              full_capacity: bool, routes: list | None):
+    """The MoE on one rank's rows x (B, S, D) and experts ``e0 .. e0 + wi.shape[0]``
+    (every expert's FFN width, or a block of it): (y (B, S, D) f32, the mean router
+    probability and assignment count of each expert over these rows, each weighted
+    by the rows' share of ``tokens``).  On one device the shares are 1 and y is the
+    whole output."""
     B, S, D = x.shape
     E, K = cfg.num_experts, cfg.top_k
     G, Sg, C = moe_capacity(cfg, B, S, full_capacity)
     xg = x.reshape(G, Sg, D)
-    probs, gate_vals, gate_idx = moe_route(cfg, p, xg)
+    probs, gate_vals, gate_idx = moe_route(cfg, {"router": router}, xg)
     if routes is not None:
         routes.append(gate_idx)
-
-    # load-balancing auxiliary loss (Switch/GShard)
+    share = B * S / tokens
     me = probs.mean(dim=(0, 1))
     ce = F.one_hot(gate_idx, E).to(torch.float32).sum(2).mean(dim=(0, 1))
-    aux = E * torch.sum(me * ce)
+    if share != 1.0:
+        me, ce = me * share, ce * share
 
     # each assignment's position in its expert's slots; the dropped ones go to an
     # overflow slot E·C, cut off below
@@ -290,23 +345,24 @@ def moe_apply(
     slot_tok = slot_tok.scatter(1, slot, tok)[:, :E * C]  # Sg: an empty slot
     slot_gate = torch.zeros((G, E * C + 1), dtype=torch.float32, device=dev)
     slot_gate = slot_gate.scatter(1, slot, gate_vals.reshape(G, Sg * K))[:, :E * C]
+    El = wi.shape[0]
+    if El != E:  # this rank's experts: their slots only
+        slot_tok = slot_tok[:, e0 * C:(e0 + El) * C]
+        slot_gate = slot_gate[:, e0 * C:(e0 + El) * C]
 
     xs_pad = torch.cat([xg, xg.new_zeros(G, 1, D)], dim=1)
-    xe = torch.gather(xs_pad, 1, slot_tok[..., None].expand(-1, -1, D))  # (G, E·C, D)
-    xe = xe.reshape(G, E, C, D).transpose(0, 1).reshape(E, G * C, D)
-    h = torch.bmm(xe, p["wi"].to(cfg.cdtype))
-    g = torch.bmm(xe, p["wg"].to(cfg.cdtype))
-    ye = torch.bmm(h * _act(cfg, g), p["wo"].to(cfg.cdtype))
-    ye = ye.reshape(E, G, C, D).transpose(0, 1).reshape(G, E * C, D)
+    xe = torch.gather(xs_pad, 1, slot_tok[..., None].expand(-1, -1, D))  # (G, El·C, D)
+    xe = xe.reshape(G, El, C, D).transpose(0, 1).reshape(El, G * C, D)
+    h = torch.bmm(xe, wi.to(cfg.cdtype))
+    g = torch.bmm(xe, wg.to(cfg.cdtype))
+    ye = torch.bmm(h * _act(cfg, g), wo.to(cfg.cdtype))
+    ye = ye.reshape(El, G, C, D).transpose(0, 1).reshape(G, El * C, D)
 
     w = ye.to(torch.float32) * slot_gate[..., None]
     rows = (slot_tok + torch.arange(G, device=dev)[:, None] * (Sg + 1)).reshape(-1)
     y = torch.zeros((G * (Sg + 1), D), dtype=torch.float32, device=dev)
     y = y.index_add(0, rows, w.reshape(-1, D)).reshape(G, Sg + 1, D)[:, :Sg]
-    y = y.reshape(B, S, D).to(cfg.cdtype)
-    if cfg.shared_experts:
-        y = y + mlp_apply(cfg, p["shared"], x)
-    return y, aux
+    return y.reshape(B, S, D), me, ce
 
 
 # ===========================================================================
@@ -334,7 +390,10 @@ def mamba_init(cfg: ModelConfig, gen: torch.Generator) -> Params:
 
 
 def _mamba_split(cfg: ModelConfig, zxbcdt: torch.Tensor):
-    """(z, xc = [x, B, C] (conv'd together), dt (…, NH)): views of the projection."""
+    """(z, xc = [x, B, C] (conv'd together), dt (…, NH)): views of the projection.
+    Under a mesh the projection's columns are gathered first: the split cuts across
+    its shards."""
+    zxbcdt = constrain(zxbcdt, "batch", "seq", None)
     DI, N = cfg.d_inner, cfg.ssm_state
     return zxbcdt[..., :DI], zxbcdt[..., DI:2 * DI + 2 * N], zxbcdt[..., 2 * DI + 2 * N:]
 
@@ -355,8 +414,10 @@ def _mamba_forward(cfg: ModelConfig, p: Params, x: torch.Tensor, return_state: b
     DI, N, NH, P = cfg.d_inner, cfg.ssm_state, cfg.n_ssm_heads, cfg.ssm_head_dim
     zxbcdt = x @ p["in_proj"].to(cfg.cdtype)
     z, xc_raw, dtr = _mamba_split(cfg, zxbcdt)
-    xc = F.silu(_causal_conv(xc_raw, p["conv_w"].to(cfg.cdtype)))
+    xc = F.silu(boundary.rows(_causal_conv, xc_raw, p["conv_w"].to(cfg.cdtype)))
     xs, Bm, Cm = xc[..., :DI], xc[..., DI:DI + N], xc[..., DI + N:]
+    xs = constrain(xs, "batch", "seq", "ssm_proj")
+    xs = constrain_as(xs, ("batch", "seq", "ssm_heads"), (B, S, NH))  # whole heads a rank
 
     # F.softplus returns its input above 20, where jax.nn.softplus is exact: a gap
     # under 2e-9 relative
@@ -364,7 +425,7 @@ def _mamba_forward(cfg: ModelConfig, p: Params, x: torch.Tensor, return_state: b
     A = -torch.exp(p["A_log"])  # (NH,) negative
     xh = xs.reshape(B, S, NH, P)
     # x, B and C are slices of one split: the kernel takes contiguous operands
-    out = kernels.ssd_scan(
+    out = boundary.ssd_scan(
         xh.contiguous(), dt.contiguous(), A, Bm[:, :, None, :].contiguous(),
         Cm[:, :, None, :].contiguous(), return_final_state=return_state, impl=impl,
     )
@@ -372,8 +433,9 @@ def _mamba_forward(cfg: ModelConfig, p: Params, x: torch.Tensor, return_state: b
     y = y + p["D_skip"].to(cfg.cdtype)[None, None, :, None] * xh  # skip
     y = y.to(cfg.cdtype).reshape(B, S, DI)
     y = y * F.silu(z)
-    y = kernels.rmsnorm(y, p["gate_norm"], eps=cfg.norm_eps, impl=impl)
-    return y @ p["out_proj"].to(cfg.cdtype), state, xc_raw
+    y = boundary.rmsnorm(y, p["gate_norm"], eps=cfg.norm_eps, impl=impl)
+    y = constrain(y @ p["out_proj"].to(cfg.cdtype), "batch", "seq", "embed")
+    return y, state, xc_raw
 
 
 def mamba_apply(
@@ -391,13 +453,15 @@ def mamba_apply(
 
 
 def mamba_cache_init(cfg: ModelConfig, batch: int, device: torch.device) -> Params:
+    """Under a mesh, placed as ``cache_shardings`` places them: the conv window on
+    batch and ``ssm_proj``, the SSM state on batch and ``ssm_heads``."""
     G = 1
     conv_dim = cfg.d_inner + 2 * G * cfg.ssm_state
     return {
-        "conv": torch.zeros((batch, cfg.conv_kernel - 1, conv_dim), dtype=cfg.cdtype,
-                            device=device),
-        "ssm": torch.zeros((batch, cfg.n_ssm_heads, cfg.ssm_state, cfg.ssm_head_dim),
-                           dtype=torch.float32, device=device),
+        "conv": zeros((batch, cfg.conv_kernel - 1, conv_dim), cfg.cdtype, device,
+                      "batch", None, "ssm_proj"),
+        "ssm": zeros((batch, cfg.n_ssm_heads, cfg.ssm_state, cfg.ssm_head_dim),
+                     torch.float32, device, "batch", "ssm_heads", None, None),
     }
 
 
@@ -423,8 +487,8 @@ def mamba_decode(
     y = y + p["D_skip"].to(cfg.cdtype)[None, :, None] * xh
     y = y.to(cfg.cdtype).reshape(B, 1, DI)
     y = y * F.silu(z)
-    y = kernels.rmsnorm(y, p["gate_norm"], eps=cfg.norm_eps, impl=impl)
-    y = y @ p["out_proj"].to(cfg.cdtype)
+    y = boundary.rmsnorm(y, p["gate_norm"], eps=cfg.norm_eps, impl=impl)
+    y = constrain(y @ p["out_proj"].to(cfg.cdtype), "batch", "seq", "embed")
     cache["conv"].copy_(window[:, 1:])
     cache["ssm"].copy_(new_ssm)
     return y, cache

@@ -30,8 +30,9 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch import kernels
 from repro_torch.device import resolve_device
+from repro_torch.parallel import constrain
+from . import boundary
 from . import layers as L
 from .common import LayerSpec, ModelConfig, apply_rope
 
@@ -174,15 +175,19 @@ def layer_prefill(
         # are the same values as the forward's own pre-conv rows, taken here.
         y, state, xc_raw = L._mamba_forward(cfg, p["mixer"], h, True, impl)
         K = cfg.conv_kernel
-        conv = F.pad(xc_raw, (0, 0, max(K - 1 - S, 0), 0))[:, -(K - 1):]  # left-pad S < K-1
+
+        def window(rows):  # the last K-1 rows, left-padded where S < K-1
+            return F.pad(rows, (0, 0, max(K - 1 - S, 0), 0))[:, -(K - 1):]
+
+        conv = boundary.rows(window, xc_raw)
         cache = {"self": {"conv": conv.to(cfg.cdtype).contiguous(), "ssm": state}}
     else:
         q, k, v = L._qkv(cfg, p["mixer"], h)
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
         window = cfg.local_window if spec.attn_kind == "local" else None
-        o = kernels.flash_attention(q, k, v, causal=True, window=window, impl=impl)
-        y = L._out(cfg, p["mixer"], o)
+        o = boundary.flash_attention(q, k, v, causal=True, window=window, impl=impl)
+        y = L._out(cfg, p["mixer"], constrain(o, "batch", "heads", "seq", "head_dim"))
 
         cache = {"self": L.attn_cache_init(cfg, B, max_len, x.device, kind=spec.attn_kind)}
         ck, cv = cache["self"]["k"], cache["self"]["v"]
@@ -192,11 +197,10 @@ def layer_prefill(
         if spec.attn_kind == "local" and S > size:
             # ring placement: the token at absolute position p lives in slot p % size
             idx = torch.remainder(torch.arange(tail, device=x.device) + (S - tail), size)
-            ck[:, :, idx] = ktail.to(ck.dtype)
-            cv[:, :, idx] = vtail.to(cv.dtype)
         else:
-            ck[:, :, :tail] = ktail.to(ck.dtype)
-            cv[:, :, :tail] = vtail.to(cv.dtype)
+            idx = slice(0, tail)
+        boundary.cache_put(ck, idx, ktail)
+        boundary.cache_put(cv, idx, vtail)
     x = x + y
     if spec.cross_attn and cross_states is not None:
         hx = L.norm_apply(cfg, p["norm_x"], x, impl=impl)
@@ -322,7 +326,23 @@ def stack_prefill(
 def init_params(cfg: ModelConfig, seed: int = 0, device: str | torch.device = "cuda") -> Params:
     """Random weights from a ``torch.Generator`` seeded with ``seed``, made on ``device``."""
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    return _init_params(cfg, torch.Generator(device=dev).manual_seed(seed), dev)
+
+
+class _MetaGenerator:
+    """Stands in for the generator of :func:`abstract_params`: its tensors are made
+    on the ``meta`` device, where nothing is drawn."""
+
+    device = torch.device("meta")
+
+
+def abstract_params(cfg: ModelConfig) -> Params:
+    """Every parameter as a ``meta`` tensor of its shape and dtype, no storage: the
+    reference's ``jax.eval_shape(init_params)``."""
+    return _init_params(cfg, _MetaGenerator(), torch.device("meta"))
+
+
+def _init_params(cfg: ModelConfig, gen, dev: torch.device) -> Params:
     p: Params = {
         "embed": L.dense_init(gen, (cfg.vocab, cfg.d_model), cfg.pdtype, fan_in=cfg.d_model),
         "layers": stack_init(cfg, gen, dev),
@@ -345,12 +365,12 @@ def encoder_config(cfg: ModelConfig) -> ModelConfig:
 
 
 def _embed(cfg: ModelConfig, p: Params, tokens: torch.Tensor) -> torch.Tensor:
-    x = p["embed"][tokens.long()].to(cfg.cdtype)
+    x = boundary.embedding(p["embed"], tokens).to(cfg.cdtype)
     if cfg.tie_embeddings:
         # gemma-style embedding scale, rounded to the compute dtype first as the
         # reference's weakly typed scalar is
         x = x * torch.tensor(cfg.d_model**0.5, dtype=cfg.cdtype)
-    return x
+    return constrain(x, "batch", "seq", "embed")
 
 
 def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -402,6 +422,11 @@ def _matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def _logits(cfg: ModelConfig, p: Params, x: torch.Tensor, *, impl: str | None = None):
     x = L.norm_apply(cfg, p["final_norm"], x, impl=impl)
     w = p["embed"].to(cfg.cdtype).T if cfg.tie_embeddings else p["lm_head"].to(cfg.cdtype)
+    return constrain(boundary.matmul_f32(x, w, _rows_matmul_f32), "batch", "seq", "vocab")
+
+
+def _rows_matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """(B, S, D) · (D, V) → (B, S, V) f32: :func:`_matmul_f32` on the B·S rows."""
     B, S, D = x.shape
     return _matmul_f32(x.reshape(B * S, D), w).reshape(B, S, -1)
 
@@ -463,10 +488,7 @@ def loss_fn(
     the reference does."""
     cross = _cross_states(cfg, p, batch, impl)
     logits, aux = _forward(cfg, p, batch["tokens"], cross, impl)
-    labels = batch["labels"].long()
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels[..., None])[..., 0]
-    nll = torch.mean(logz - gold)
+    nll = boundary.nll(logits, batch["labels"])
     loss = nll + _AUX_WEIGHT * aux
     return loss, {"nll": nll, "aux": aux}
 

@@ -14,6 +14,11 @@ sees the difference is Adafactor's update clip, an RMS over a whole leaf, which
 the port takes over the group of per-layer leaves the reference stacks
 (``layer_groups``, from ``repro_torch.models.model.stacked_layer_groups``).  Adafactor
 refuses a tree of layers without it.
+
+On a mesh the leaves are DTensors (``repro_torch.distributed.jit_train_step``), and the
+reductions are DTensor's: a sum or mean over a sharded leaf is a ``Partial`` that is
+reduced over the mesh before the square root or the division uses it, so the global
+norm and Adafactor's RMS are over whole leaves, as on one device.
 """
 
 from __future__ import annotations

@@ -22,16 +22,25 @@ under a ``torch.profiler`` label (``repro.all_reduce.<op>``,
 ``repro.all_gather``), so a trace can sum the time a step spends in them.
 
 ``constrain``, ``named_sharding`` and ``logical_to_spec`` are what model code
-calls under GSPMD (the model zoo's sharded ``jit_*`` wrappers): without an
-active mesh context they are the reference's no-ops; under one they wait for
-ROADMAP item A9b.
+calls under GSPMD (the model zoo's sharded ``jit_*`` wrappers,
+``repro_torch.distributed``).  Without an active mesh context they are the
+reference's no-ops.  Under one, a partition (one entry per tensor dim: a mesh
+axis, a tuple of them, or None) maps to DTensor placements on the context's
+``DeviceMesh`` (:func:`placements`), and :func:`constrain` redistributes a
+``DTensor`` to the placements of its logical axes, where the reference inserts
+``with_sharding_constraint``.  A plain tensor passes through unchanged.  On a
+mesh over gloo on the card, shards are gathered with c10d's ``all_gather``
+(:func:`gather_through_c10d`).
 """
 
 from __future__ import annotations
 
 import contextlib
 import threading
+import weakref
 from typing import Any, Mapping, Sequence
+
+import torch
 
 __all__ = [
     "AbstractMesh",
@@ -43,14 +52,19 @@ __all__ = [
     "axis_group",
     "axis_index",
     "constrain",
+    "constrain_as",
     "current_mesh_context",
     "current_shard_mesh",
+    "gather_through_c10d",
     "is_concrete",
     "logical_to_spec",
     "mesh_axes",
     "mesh_context",
     "named_sharding",
+    "placements",
+    "redistribute",
     "shard_program",
+    "zeros",
 ]
 
 #: logical axis → physical mesh axis (or tuple of axes, or None=replicated).
@@ -148,6 +162,101 @@ class MeshContext:
             axes.append(cand if len(cand) > 1 else cand[0])
         return tuple(axes)
 
+    def sharding(self, logical: Sequence[str | None], shape: Sequence[int] | None = None):
+        """The DTensor placements of ``logical`` on this context's mesh (the
+        reference's ``NamedSharding``)."""
+        return placements(self.spec(logical, shape), self.mesh)
+
+
+def placements(spec: Sequence[Any], mesh: Any) -> tuple:
+    """DTensor placements, one per mesh dim, of a partition ``spec`` (one entry per
+    tensor dim): ``Shard(d)`` on each mesh axis that dim ``d`` names, ``Replicate()``
+    on the others.  A dim over several axes (``("pod", "data")``) is split over them
+    outermost first, as a ``PartitionSpec`` is.  A mesh axis of size 1 holds the
+    whole dim: it is ``Replicate()``, so a 1×1 mesh places everything whole."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    sizes = mesh_axes(mesh)
+    names = list(sizes)
+    out: list[Any] = [Replicate()] * len(names)
+    for dim, entry in enumerate(spec):
+        if entry is None:
+            continue
+        for a in entry if isinstance(entry, tuple) else (entry,):
+            if sizes[a] > 1:
+                out[names.index(a)] = Shard(dim)
+    return tuple(out)
+
+
+def redistribute(x: Any, target: Sequence[Any]) -> Any:
+    """``x`` (a DTensor) moved to ``target`` placements.  A pending sum
+    (``Partial``) is all-reduced first and then cut locally, so the step never
+    needs a reduce-scatter.  On a mesh marked by :func:`gather_through_c10d` a
+    shard that ``target`` replicates is gathered by :func:`all_gather`.
+    Differentiable."""
+    from torch.distributed.tensor import Partial, Replicate
+
+    target = tuple(target)
+    if tuple(x.placements) == target:
+        return x
+    if any(isinstance(p, Partial) for p in x.placements):
+        mid = tuple(Replicate() if isinstance(p, Partial) else p for p in x.placements)
+        x = x.redistribute(x.device_mesh, mid)
+    if x.device_mesh in _C10D_GATHER:
+        x = _gather_c10d(x, target)
+    return x if tuple(x.placements) == target else x.redistribute(x.device_mesh, target)
+
+
+#: meshes whose shards :func:`redistribute` gathers with c10d's collective
+_C10D_GATHER: weakref.WeakSet = weakref.WeakSet()
+
+
+def gather_through_c10d(mesh: Any) -> None:
+    """Make :func:`redistribute` gather ``mesh``'s shards with c10d's
+    ``all_gather`` (:func:`all_gather`) instead of DTensor's own gather.  The mesh
+    maker calls it once, for gloo on CUDA tensors (ranks sharing a card): DTensor
+    gathers through the functional collective
+    ``_c10d_functional.all_gather_into_tensor``, which there crashes both ranks
+    (SIGSEGV) at its first call, at 1 MB, while c10d's ``all_gather`` and
+    ``all_gather_into_tensor`` run at 384 MB a rank (torch 2.11;
+    ``scripts/gloo_cuda_gather.py``)."""
+    _C10D_GATHER.add(mesh)
+
+
+class _GatherShard(torch.autograd.Function):
+    """One mesh dim's gather: forward, :func:`all_gather` of the local blocks along
+    ``dim``; backward, this rank's block of the (replicated) gradient, as DTensor's
+    own gather does."""
+
+    @staticmethod
+    def forward(ctx, local, dim, group, n, r):
+        ctx.dim, ctx.n, ctx.r = dim, n, r
+        return all_gather(local, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.chunk(ctx.n, dim=ctx.dim)[ctx.r].contiguous(), None, None, None, None
+
+
+def _gather_c10d(x: Any, target: tuple) -> Any:
+    """``x`` with each shard that ``target`` does not keep gathered over its mesh
+    dim's group, innermost mesh dim first (a dim split over two axes is cut by the
+    outer one first)."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    mesh = x.device_mesh
+    assert len(x.placements) == len(target), (mesh, x.placements, target)
+    for m in reversed(range(len(x.placements))):
+        p = x.placements[m]
+        if not isinstance(p, Shard) or target[m] == p:
+            continue
+        whole = _GatherShard.apply(x.to_local(), p.dim % x.ndim, mesh.get_group(m),
+                                   mesh.size(m), mesh.get_local_rank(m))
+        pls = tuple(Replicate() if i == m else q for i, q in enumerate(x.placements))
+        x = DTensor.from_local(whole, mesh, pls, run_check=False, shape=x.shape,
+                               stride=x.stride())
+    return x
+
 
 _STATE = threading.local()
 
@@ -167,29 +276,57 @@ def mesh_context(mesh: Any, rules: Mapping[str, Any] | None = None):
         _STATE.ctx = prev
 
 
-def _gspmd(what: str):
-    raise NotImplementedError(
-        f"{what} under a mesh waits for the model zoo's sharded wrappers (ROADMAP item A9b)"
-    )
-
-
 def constrain(x: Any, *logical: str | None) -> Any:
-    """Identity when no mesh context is active (the reference's no-op mode)."""
-    if current_mesh_context() is None:
+    """``x`` redistributed to the placements of its ``logical`` axes under the
+    active mesh context (axes that do not divide their dim fall back to
+    replication, checked against ``x.shape``); identity without a context or on a
+    tensor that is not a DTensor."""
+    from torch.distributed.tensor import DTensor
+
+    ctx = current_mesh_context()
+    if ctx is None or not isinstance(x, DTensor):
         return x
-    _gspmd("parallel.constrain")
+    return redistribute(x, ctx.sharding(logical, x.shape))
+
+
+def constrain_as(x: Any, logical: Sequence[str | None], shape: Sequence[int]) -> Any:
+    """:func:`constrain` with the divisibility checked against ``shape`` in place
+    of ``x.shape``: a flattened dim placed by the count of what it holds (the
+    heads of a ``heads × head_dim`` column block)."""
+    from torch.distributed.tensor import DTensor
+
+    ctx = current_mesh_context()
+    if ctx is None or not isinstance(x, DTensor):
+        return x
+    return redistribute(x, ctx.sharding(logical, shape))
+
+
+def zeros(shape: Sequence[int], dtype: Any, device: Any, *logical: str | None) -> Any:
+    """A tensor of zeros; under a concrete mesh context, a DTensor placed by its
+    ``logical`` axes from the start (a decode cache made under a mesh), where the
+    reference makes the zeros and constrains them."""
+    ctx = current_mesh_context()
+    if ctx is None or not is_concrete(ctx.mesh):
+        return torch.zeros(tuple(shape), dtype=dtype, device=device)
+    from torch.distributed.tensor import zeros as dzeros
+
+    return dzeros(tuple(shape), dtype=dtype, device_mesh=ctx.mesh,
+                  placements=ctx.sharding(logical, tuple(shape)))
 
 
 def logical_to_spec(logical: Sequence[str | None]) -> tuple:
-    if current_mesh_context() is None:
+    ctx = current_mesh_context()
+    if ctx is None:
         return ()
-    _gspmd("parallel.logical_to_spec")
+    return ctx.spec(logical)
 
 
-def named_sharding(logical: Sequence[str | None]) -> None:
-    if current_mesh_context() is None:
+def named_sharding(logical: Sequence[str | None]) -> tuple | None:
+    """The placements of ``logical`` on the active mesh, or None without one."""
+    ctx = current_mesh_context()
+    if ctx is None:
         return None
-    _gspmd("parallel.named_sharding")
+    return ctx.sharding(logical)
 
 
 # ---------------------------------------------------------------------------
@@ -240,7 +377,6 @@ def axis_index(mesh: Any, axes: Sequence[str]) -> int:
 
 def all_reduce(x: Any, op: str, group) -> Any:
     """A new tensor: ``x`` reduced (``"sum"`` or ``"max"``) over ``group``."""
-    import torch
     import torch.distributed as dist
 
     with torch.profiler.record_function(f"repro.all_reduce.{op}"):
@@ -253,7 +389,6 @@ def all_reduce(x: Any, op: str, group) -> Any:
 def all_gather(x: Any, dim: int, group) -> Any:
     """``x``'s blocks from every rank of ``group``, in group-rank order,
     concatenated along ``dim``."""
-    import torch
     import torch.distributed as dist
 
     with torch.profiler.record_function("repro.all_gather"):

@@ -10,6 +10,10 @@ step/checkpoint/watchdog until done.
 * **Straggler watchdog**: steps slower than ``deadline_factor ×`` the running
   median are logged and counted; the hook is a callback.
 * **Restore onto a device**: ``restore`` places the state on the given device.
+* **Placed state**: with ``place`` (a mesh's placements, from
+  ``repro_torch.distributed.place``) the fresh state is placed before the step sees
+  it, and so is the restore target, so a restored state comes back as this rank's
+  shards at the same placements (each rank checkpoints its own shards).
 
 ``float(loss)`` waits for the step's device work once per step, as the
 reference's ``jax.device_get(loss)`` does.
@@ -82,13 +86,15 @@ def train_loop(
     device: str | torch.device | None = None,
     on_step: Callable[[int, dict], None] | None = None,
     fault_injector: Callable[[int], None] | None = None,
+    place: Callable[[Any], Any] | None = None,
 ) -> TrainResult:
     """Run the fault-tolerant loop.
 
     ``step_fn(state, batch) -> (state, metrics)``; ``init_state()`` builds fresh
     state; ``batch_fn(step)`` is the pure data function; ``fault_injector(step)``
     may raise to simulate crashes.  A restored state goes to ``device``, or to the
-    devices of the fresh state's leaves.
+    devices of the fresh state's leaves; ``place(state)`` places a fresh state
+    (and with it the restore target) on a mesh.
     """
     mgr = CheckpointManager(cfg.checkpoint_dir, keep=cfg.keep)
     watchdog = StragglerWatchdog(cfg.deadline_factor)
@@ -97,6 +103,8 @@ def train_loop(
 
     def start_or_resume():
         state = init_state()
+        if place is not None:
+            state = place(state)
         if mgr.has_checkpoint():
             step, state = mgr.restore_latest(state, device)
             return step + 1, state

@@ -14,30 +14,42 @@ __all__ = ["leaves", "leaves_with_paths", "map_leaves", "unflatten"]
 Path = tuple[Any, ...]
 
 
-def leaves_with_paths(tree: Any, prefix: Path = ()) -> Iterator[tuple[Path, Any]]:
-    """(path, leaf) pairs in order; a path is the tuple of keys and indices."""
-    if isinstance(tree, dict):
+def leaves_with_paths(
+    tree: Any, prefix: Path = (), is_leaf: Callable[[Any], bool] | None = None
+) -> Iterator[tuple[Path, Any]]:
+    """(path, leaf) pairs in order; a path is the tuple of keys and indices.
+    ``is_leaf`` marks nodes taken whole (a partition tuple), as jax's does."""
+    if is_leaf is not None and is_leaf(tree):
+        yield prefix, tree
+    elif isinstance(tree, dict):
         for k in sorted(tree):
-            yield from leaves_with_paths(tree[k], prefix + (k,))
+            yield from leaves_with_paths(tree[k], prefix + (k,), is_leaf)
     elif isinstance(tree, (list, tuple)):
         for i, v in enumerate(tree):
-            yield from leaves_with_paths(v, prefix + (i,))
+            yield from leaves_with_paths(v, prefix + (i,), is_leaf)
     else:
         yield prefix, tree
 
 
-def leaves(tree: Any) -> list[Any]:
-    return [leaf for _, leaf in leaves_with_paths(tree)]
+def leaves(tree: Any, is_leaf: Callable[[Any], bool] | None = None) -> list[Any]:
+    return [leaf for _, leaf in leaves_with_paths(tree, is_leaf=is_leaf)]
 
 
-def map_leaves(fn: Callable[..., Any], tree: Any, *rest: Any) -> Any:
-    """``fn`` applied leafwise to ``tree`` and trees of the same structure."""
+def map_leaves(
+    fn: Callable[..., Any], tree: Any, *rest: Any, is_leaf: Callable[[Any], bool] | None = None
+) -> Any:
+    """``fn`` applied leafwise to ``tree`` and trees of the same structure
+    (``is_leaf`` as in :func:`leaves_with_paths`, on ``tree``)."""
+    if is_leaf is not None and is_leaf(tree):
+        return fn(tree, *rest)
     if isinstance(tree, dict):
-        return {k: map_leaves(fn, tree[k], *(r[k] for r in rest)) for k in tree}
+        return {k: map_leaves(fn, tree[k], *(r[k] for r in rest), is_leaf=is_leaf)
+                for k in tree}
     if isinstance(tree, (list, tuple)):
         if any(len(r) != len(tree) for r in rest):
             raise ValueError("trees of different lengths")
-        out = [map_leaves(fn, v, *(r[i] for r in rest)) for i, v in enumerate(tree)]
+        out = [map_leaves(fn, v, *(r[i] for r in rest), is_leaf=is_leaf)
+               for i, v in enumerate(tree)]
         return type(tree)(out)
     return fn(tree, *rest)
 

@@ -41,7 +41,8 @@ def test_port_files_exist():
     for module in ("core/torch_backend.py", "obs/metrics.py", "obs/profile.py",
                    "obs/explain.py", "serve/__init__.py", "serve/model.py", "serve/faults.py",
                    "serve/engine.py", "core/oo_tape.py", "core/spmd.py", "parallel/__init__.py",
-                   "launch/mesh.py"):
+                   "launch/mesh.py", "configs/base.py", "distributed/sharding.py",
+                   "distributed/collectives.py", "launch/dryrun.py", "models/boundary.py"):
         assert f"src/repro_torch/{module}" in names, module
 
 

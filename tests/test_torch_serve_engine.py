@@ -268,8 +268,10 @@ def test_launch_serve_myia_full_prefix_and_mesh_flags(capsys):
     # a world of one; the two-rank run is tests/test_torch_spmd_exec.py's
     with pytest.raises(ValueError, match="2 ranks"):
         main(["--compiler", "myia", "--reduced", "--device", "cpu", "--data-mesh", "2"])
-    with pytest.raises(NotImplementedError, match="A9b"):
-        main(["--reduced", "--device", "cpu", "--data-mesh", "2"])
+    # --compiler torch serves on one device whatever the mesh flags, as the reference's
+    assert main(["--reduced", "--device", "cpu", "--data-mesh", "2", "--batch", "2",
+                 "--prompt-len", "5", "--gen", "2"]) == 0
+    assert "serves on one device" in capsys.readouterr().out
 
 
 def test_make_serve_fns_match_the_model():

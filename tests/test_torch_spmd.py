@@ -354,8 +354,9 @@ def test_mesh_context_spec_and_the_gspmd_calls():
         assert ctx.spec(("batch", None, "vocab")) == ("data", None, "model")
         # batch 3 does not divide by data=2: replicated
         assert ctx.spec(("batch", "mlp"), (3, 8)) == (None, "model")
-        with pytest.raises(NotImplementedError, match="A9b"):
-            parallel.constrain(torch.ones(2), "batch")
+        # under a mesh, constrain places DTensors; a plain tensor passes through
+        assert parallel.constrain(y := torch.ones(2), "batch") is y
+        assert parallel.logical_to_spec(("batch",)) == ("data",)
     assert parallel.constrain(x := torch.ones(2), "batch") is x
     assert parallel.logical_to_spec(("batch",)) == ()
     assert parallel.named_sharding(("batch",)) is None
@@ -364,8 +365,9 @@ def test_mesh_context_spec_and_the_gspmd_calls():
 def test_meshes_that_wait_or_do_not_fit_raise():
     from repro_torch.launch import mesh as launch_mesh
 
-    with pytest.raises(NotImplementedError, match="A9b"):
-        launch_mesh.make_production_mesh()
+    # the production mesh is built (in a fake world of its own process) by
+    # tests/test_torch_dryrun.py; a local mesh needs as many ranks as it has blocks
+    assert launch_mesh.FAKE_WORLD == 512
     with pytest.raises(ValueError, match="2 ranks"):
         launch_mesh.make_local_mesh(2, 1, device="cpu")
 

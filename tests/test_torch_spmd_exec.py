@@ -300,9 +300,11 @@ def test_launch_train_under_torch_distributed_run(tmp_path):
 
 
 def test_launch_train_mesh_flags_of_the_model_zoo_wait():
+    """``--compiler torch`` under a mesh runs the placed step (its two-rank run is
+    tests/test_torch_sharded_exec.py's); a world of one cannot hold a 2x1 mesh."""
     from repro_torch.launch.train import main
 
-    with pytest.raises(NotImplementedError, match="A9b"):
+    with pytest.raises(ValueError, match="2 ranks"):
         main(["--reduced", "--device", "cpu", "--data-mesh", "2"])
 
 
