@@ -146,7 +146,26 @@ Drives ``repro_torch`` only (never ``repro`` or ``jax``), on one CUDA device:
     cluster, the global plan's kinds and members), K1 launches and step time.  Each rank
     holds every per-shard kernel against its oracle on the inputs its first step gave
     it, at the per-shard shapes (phase 17's bounds), and rank 0 runs its last step under
-    ``torch.profiler``: the time in the collectives, the card's busy and idle time.
+    ``torch.profiler``: the time in the collectives, the card's busy and idle time;
+32. the model zoo's placed steps on a 1x1 NCCL mesh: internlm2-1.8b's train step and
+    gemma3-1b's prefill and decode, bitwise equal to the single-device path;
+33. two ranks sharing the card over gloo: ``launch.train`` on 2x1 and 1x2 meshes, and this
+    script's ``--sharded-rank`` program holding each rank's f32 step (and mamba2's prefill
+    on 1x2) to the single-device values;
+34. the dry run (``repro_torch.launch.dryrun``) of three production cells on fake meshes,
+    in processes of their own beside phases 32-33, with their memory, bytes accessed and
+    collective bytes; and the peak it computes for phase 32's train step (8 x 1024, the
+    plain versions) on a fake 1x1 mesh (this script's ``--dryrun-peak`` process) against
+    the card's ``max_memory_allocated`` for the same step: within 10%;
+35. the examples, as a user runs them with no flags, on the default device:
+    ``examples/torch_quickstart.py`` (its values, its results on the card),
+    ``torch_train_lm_myia.py`` (its checks; batch 0's Myia gradients card against CPU),
+    ``torch_serve_batch.py`` (four reduced archs, the card's kernels against the CPU's
+    plain versions from the same weights; the engine cold and warm on one program cache),
+    ``torch_train_e2e.py`` (300 steps of its f32 config from a fresh checkpoint directory,
+    K2/K3/K4 launches a step pinned at 17/17/8, step time, tokens/s, peak memory; one step
+    against the plain versions); then every kernel at every shape those paths gave it,
+    timed beside its bound and library call (SDPA in f32 for K4).
 
 A failed phase raises and the script exits non-zero.  The last lines are the
 kernels' record, the card's name and power limit, and the device line.
@@ -303,6 +322,110 @@ SH_LOSS_RTOL, SH_PARAM_RTOL, SH_PARAM_ATOL = 2e-5, 2e-4, 1e-6
 # the dry run's cells (phase 34): (arch, cell, mesh)
 SH_DRYRUN = (("internlm2-1.8b", "train_4k", "single"), ("gemma3-1b", "decode_32k", "single"),
              ("grok-1-314b", "train_4k", "multi"))
+
+# The examples (phase 35): each examples/torch_<name>.py runs in this process as ``python
+# examples/torch_<name>.py`` runs it (its module loaded by runpy; its __main__ block is a
+# call of main with no arguments), on the default device, so that the kernels' counters
+# can be read before and after.
+EXAMPLES_DIR = Path(__file__).resolve().parent / "examples"
+# train_e2e's config_100m: 8 layers, none rematerialised (its period of 6 repeats once,
+# so no scan segment has reps > 1), so a step launches K2 2·8 + 1 = 17 times (the
+# forward's norms), K3 17 (their backward) and K4 8 (the forward; the attention's
+# backward is the plain chunked one): pinned exactly over the run's 300 steps
+E2E_STEPS = 300
+E2E_LAUNCHES = {"rmsnorm_fwd": 17, "rmsnorm_bwd": 17, "flash_attention_fwd": 8}
+# one f32 train_e2e step, kernels against plain versions: each gradient leaf's relative
+# norm ||a - b|| / ||b||.  Another order of f32 sums moves a leaf by ~1e-6 of its norm;
+# a wrong attention window or kv-head map moves the leaves it reaches by far more.
+E2E_GRAD_REL = 1e-4
+# quickstart's printed values (the reference's expected ones), exact in f32
+QUICKSTART_EXPECTED = {"f(2.0)": 12.0, "g'(2.0)": 14.0, "g''(2.0)": 12.0, "x^5 at 2": 32.0,
+                       "d/dx x^5 at 2": 80.0}
+# the dry run's peak against the card's (phase 34): the same step, within 10%
+DRYRUN_PEAK_REL = 0.10
+
+
+class _Tee:
+    """A text stream writing to every stream it is given."""
+
+    def __init__(self, *streams) -> None:
+        self.streams = streams
+
+    def write(self, text: str) -> int:
+        for st in self.streams:
+            st.write(text)
+        return len(text)
+
+    def flush(self) -> None:
+        for st in self.streams:
+            st.flush()
+
+
+def run_example(name: str, argv: list[str], **kwargs) -> tuple[dict, str]:
+    """``examples/torch_<name>.py``'s ``main(argv, **kwargs)`` in this process; its
+    namespace and what it printed (shown as it runs).  It must return 0."""
+    import io
+    import runpy
+
+    ns = runpy.run_path(str(EXAMPLES_DIR / f"torch_{name}.py"), run_name=f"torch_{name}")
+    out = io.StringIO()
+    with contextlib.redirect_stdout(_Tee(sys.stdout, out)):
+        rc = ns["main"](argv, **kwargs)
+    assert rc == 0, (name, rc)
+    return ns, out.getvalue()
+
+
+def printed_values(text: str) -> dict:
+    """label -> the value printed after it, for each ``label = value`` or ``label: value``
+    line (quickstart's)."""
+    out = {}
+    for line in text.splitlines():
+        m = re.match(r"^(.*?)(?: =|:) (\S+)", line)
+        if m:
+            out[m.group(1)] = m.group(2)
+    return out
+
+
+@contextlib.contextmanager
+def capturing_kernels(ops, seen: dict):
+    """For the extent, every call of the ops' K2, K3, K4 and K5 entries goes on to the
+    kernel (whose counter counts it) after its signature (operand shapes and dtypes,
+    keyword arguments) is counted in ``seen``: the shapes a path gives each kernel."""
+    names = ("rmsnorm_fwd", "rmsnorm_bwd", "flash_attention_fwd", "ssd_scan_fwd")
+    saved = {n: getattr(ops, n) for n in names}
+
+    def wrap(name, fn):
+        def call(*args, **kwargs):
+            key = (name, tuple((tuple(a.shape), a.dtype) for a in args),
+                   tuple(sorted(kwargs.items())))
+            seen[key] = seen.get(key, 0) + 1
+            return fn(*args, **kwargs)
+        return call
+
+    for n in names:
+        setattr(ops, n, wrap(n, saved[n]))
+    try:
+        yield seen
+    finally:
+        for n in names:
+            setattr(ops, n, saved[n])
+
+
+def dryrun_peak() -> int:
+    """Phase 34's fourth dry-run process: internlm2-1.8b's train step at phase 32's batch
+    (SH_B x SH_S, bf16, AdamW, remat) with the plain versions, on a fake 1x1 mesh; its
+    record, whose peak the phase holds against the card's reading of the same step."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.launch.dryrun import run_cell
+    from repro_torch.launch.mesh import make_fake_mesh
+
+    cell = ShapeCell(f"train_{SH_B}x{SH_S}", "train", SH_S, SH_B)
+    rec = run_cell("internlm2-1.8b", cell, make_fake_mesh((1, 1), ("data", "model")), "1x1",
+                   impl="ref")
+    print("DRYRUN " + json.dumps(rec), flush=True)
+    return 0
+
 
 SM_K1_PROBE = """
 def k1_probe(cache_dir):
@@ -1836,10 +1959,14 @@ def sharded_phases(torch, dev, card: str) -> dict:
     # at the lowest priority, while phases 32-33 run ------------------------------------
     t_dry = time.monotonic()
     dry_dir = tempfile.TemporaryDirectory()
-    procs = [subprocess.Popen([sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
-                               "--cell", cell, "--mesh", which, "--out", dry_dir.name],
-                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env,
-                              preexec_fn=lambda: os.nice(19)) for arch, cell, which in SH_DRYRUN]
+    commands = [[sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--cell",
+                 cell, "--mesh", which, "--out", dry_dir.name]
+                for arch, cell, which in SH_DRYRUN]
+    # and phase 32's train step on a fake 1x1 mesh, whose peak the card's is held to
+    commands.append([sys.executable, str(Path(__file__).resolve()), "--dryrun-peak"])
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                              env=env, preexec_fn=lambda: os.nice(19)) for cmd in commands]
+    card_mem: dict = {}
     try:
         # -- 32. a 1x1 mesh over NCCL, at full width and depth --------------------------
         t_phase = time.monotonic()
@@ -1891,6 +2018,30 @@ def sharded_phases(torch, dev, card: str) -> dict:
                 f"{placed['launches'][0]}, as the single-device step's")
             out["train_sharded_1x1"] = placed["launches"][-1]
             del placed, single
+            torch.cuda.empty_cache()
+
+            # -- 34 (the card's side). the same step with the plain versions, as the dry
+            # run traces it: after one warm step (the placed state, cuBLAS's workspace),
+            # the peak from a reset just before the next, the state already resident.
+            # The process holds other tensors besides (earlier phases'): the reading
+            # less them is the step's peak with its arguments.
+            fn_ref, _ = jit_train_step(cfg, opt, MeshContext(mesh, make_rules(cfg)), template,
+                                       batches[0], impl="ref")
+            st, _m = fn_ref(init(), batches[0])
+            del _m
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            args_b = sum(t.to_local().numel() * t.to_local().element_size()
+                         if hasattr(t, "to_local") else t.numel() * t.element_size()
+                         for t in T.leaves(st) + T.leaves(batches[1]))
+            before = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            st, _m = fn_ref(st, batches[1])
+            torch.cuda.synchronize()
+            raw = torch.cuda.max_memory_allocated()
+            card_mem.update(raw=raw, before=before, arguments=args_b,
+                            peak=raw - (before - args_b))
+            del st, _m, fn_ref
             torch.cuda.empty_cache()
 
             # serving gemma3-1b through jit_prefill and jit_decode_step
@@ -2016,14 +2167,34 @@ def sharded_phases(torch, dev, card: str) -> dict:
 
     # -- 34 (collected). the dry run's processes, started before phase 32 ----------------
         records = []
-        for (arch, cell, _w), p in zip(SH_DRYRUN, procs):
+        for cmd, p in zip(commands, procs):
             stdout, stderr = p.communicate(timeout=900)
-            assert p.returncode == 0, (arch, cell, stdout[-3000:], stderr[-3000:])
+            assert p.returncode == 0, (cmd, stdout[-3000:], stderr[-3000:])
             rec = [json.loads(line.split(" ", 1)[1]) for line in stdout.splitlines()
                    if line.startswith("DRYRUN ")]
             assert len(rec) == 1, stdout[-2000:]
             records.append(rec[0])
             say(f"[dryrun] {json.dumps(rec[0])}")
+        for rec in records:
+            mem = rec["memory"]
+            say(f"[dryrun] {rec['arch']} x {rec['cell']} x {rec['mesh']}: a rank's peak "
+                f"{mem['peak_size_bytes'] / 2**30:.3f} GiB (arguments "
+                f"{mem['argument_size_bytes'] / 2**30:.3f}, temp {mem['temp_size_bytes'] / 2**30:.3f}"
+                f", outputs {mem['output_size_bytes'] / 2**30:.3f}); bytes accessed "
+                f"{rec['bytes_accessed_per_rank']:.4g}; collective bytes "
+                f"{rec['collective_bytes']}")
+        est = records[-1]["memory"]
+        gap = abs(card_mem["peak"] - est["peak_size_bytes"]) / card_mem["peak"]
+        say(f"[dryrun-vs-card] {card}: internlm2-1.8b's step ({SH_B} x {SH_S}, bf16, AdamW, the "
+            f"plain versions) on a 1x1 mesh: the card's max_memory_allocated "
+            f"{card_mem['raw']} bytes from a reset with {card_mem['before']} allocated, of which "
+            f"{card_mem['arguments']} are the step's arguments: the step's peak "
+            f"{card_mem['peak']} bytes ({card_mem['peak'] / 2**30:.3f} GiB); the dry run's "
+            f"peak_size_bytes {est['peak_size_bytes']} ({est['peak_size_bytes'] / 2**30:.3f} "
+            f"GiB, arguments {est['argument_size_bytes']}); {gap:.2%} apart (bound "
+            f"{DRYRUN_PEAK_REL:.0%})")
+        assert est["argument_size_bytes"] == card_mem["arguments"], (est, card_mem)
+        assert gap <= DRYRUN_PEAK_REL, (card_mem, est)
     finally:  # every process this phase started ends here
         for p in procs:
             if p.poll() is None:
@@ -2032,6 +2203,170 @@ def sharded_phases(torch, dev, card: str) -> dict:
         dry_dir.cleanup()
     say(f"[dryrun] {len(records)} cells built on fake meshes, nothing allocated; "
         f"{time.monotonic() - t_dry:.1f}s from their start, beside phases 32-33")
+    return out
+
+
+def examples_phase(torch, dev, card: str) -> dict:
+    """Phase 35: the four examples (``examples/torch_*.py``) as a user runs them, with no
+    flags, on the default device (the card), each checked against what it must show.
+    Returns the kernel launches of serve_batch's and train_e2e's runs, and the shapes
+    they gave each kernel (``<path>_shapes``: signature -> calls)."""
+    import os
+    import shutil
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import api as myia_api
+    from repro_torch.data import DataConfig, SyntheticLM, to_device
+    from repro_torch.distributed import make_train_state_fn
+    from repro_torch.kernels import ops, reset_launches
+    from repro_torch.models import init_params, loss_fn
+    from repro_torch.optim import OptConfig, make_optimizer
+    from repro_torch.tree import leaves, map_leaves
+
+    out: dict = {}
+    # quickstart: every call has only Python scalars, or tensors made on the default
+    # device; the results must lie on the card
+    t0 = time.monotonic()
+    results: dict = {}
+    ns, printed = run_example("quickstart", [], results=results)
+    got = printed_values(printed)
+    for label, want in QUICKSTART_EXPECTED.items():
+        assert float(got[label]) == want, (label, got[label], want)
+    on_cpu: dict = {}
+    with contextlib.redirect_stdout(None):
+        ns["main"](["--device", "cpu"], results=on_cpu)
+    hof_gap = max(abs(float(results[k]) - float(on_cpu[k])) for k in ("hof", "dhof"))
+    assert hof_gap <= 1e-6, hof_gap
+    tensors = {k: v for k, v in results.items() if isinstance(v, torch.Tensor)}
+    assert len(tensors) == len(results) - 1 and all(v.device.type == dev.type
+                                                    for v in tensors.values()), \
+        {k: getattr(v, "device", v) for k, v in results.items()}
+    assert got["myia grad == torch.autograd grad"] == "True"
+    say(f"[example-quickstart] the expected values {QUICKSTART_EXPECTED}; hof and hof' within "
+        f"{hof_gap:.1e} of the CPU run's; all {len(tensors)} results on "
+        f"{sorted({str(v.device) for v in tensors.values()})}; {time.monotonic() - t0:.1f}s")
+
+    # train_lm_myia: its own gradient check against torch.autograd on the card and its
+    # loss drop; then batch 0's Myia gradients, card against CPU
+    t0 = time.monotonic()
+    ns, printed = run_example("train_lm_myia", [])
+    first, last = (float(x) for x in re.search(r"loss (\S+) → (\S+) \(Myia", printed).groups())
+    assert last < 0.8 * first, (first, last)
+    vag = myia_api.value_and_grad(ns["lm_loss"], wrt=(0, 1, 2, 3))
+    grads = {}
+    for where in ("cpu", dev):
+        b0 = to_device(ns["dataset"]().batch(0), where)
+        grads[str(where)] = vag(*ns["init_params"](where), b0["tokens"], b0["labels"])[1]
+    lm_gap = 0.0
+    for a, b in zip(grads[str(dev)], grads["cpu"]):
+        assert a.device.type == dev.type
+        torch.testing.assert_close(a.cpu(), b, **BWD_TOL)
+        lm_gap = max(lm_gap, (a.cpu() - b).abs().max().item())
+    say(f"[example-train-lm-myia] 200 AdamW steps, loss {first:.4f} -> {last:.4f} (bound "
+        f"{0.8 * first:.4f}); batch 0's Myia gradients card against CPU within {lm_gap:.3e} "
+        f"(BWD_TOL); {time.monotonic() - t0:.1f}s")
+
+    # serve_batch: the four archs, kernels on the card against the CPU's plain versions
+    # from the same weights, then the engine, cold and warm on one program cache
+    t0 = time.monotonic()
+    cache_dir = tempfile.mkdtemp(prefix="serve_batch_cache_")
+    os.environ["MYIA_SERVE_CACHE"] = cache_dir
+    try:
+        results, shapes = {}, {}
+        reset_launches()
+        with capturing_kernels(ops, shapes):
+            ns, printed = run_example("serve_batch", [], results=results)
+        out["example_serve_batch"] = _launch_counts()
+        out["example_serve_batch_shapes"] = shapes
+        gaps = {}
+        with contextlib.redirect_stdout(None):
+            for arch in ns["ARCHS"]:
+                cfg = get_config(arch, reduced=True)
+                params = map_leaves(lambda t: t.cpu(), init_params(cfg, seed=0, device=dev))
+                plain = ns["serve"](arch, device="cpu", params=params)
+                card_logits = results[arch]["logits"].cpu()
+                torch.testing.assert_close(card_logits, plain["logits"], **TOL["float32"])
+                assert (results[arch]["tokens"] == plain["tokens"]).all(), arch
+                gaps[arch] = (card_logits - plain["logits"]).abs().max().item()
+            eng = results["engine"]
+            warm = ns["serve_myia_engine"](device=dev)
+        rid = eng["submitted"][0][0]
+        assert eng["results"][rid]["tokens"] == eng["oracle"]
+        cold_c, warm_c = eng["stats"]["program_cache"], warm["stats"]["program_cache"]
+        assert warm_c["programs_built"] == 0 and warm_c["misses"] == 0, warm_c
+        assert [warm["results"][r]["tokens"] for r, _ in warm["submitted"]] == \
+            [eng["results"][r]["tokens"] for r, _ in eng["submitted"]]
+    finally:
+        del os.environ["MYIA_SERVE_CACHE"]
+        shutil.rmtree(cache_dir, ignore_errors=True)
+    say(f"[example-serve-batch] {card}: the card's logits (every position generated, kernels) "
+        f"against the CPU's plain versions from the same weights, largest gap by arch "
+        f"{ {a: float(f'{g:.3e}') for a, g in gaps.items()} } (TOL float32), greedy tokens "
+        f"equal; rates {[round(results[a]['rate'], 1) for a in ns['ARCHS']]} tok/s; the "
+        f"engine's stream equals oracle_generate; cache cold {cold_c['misses']} misses, "
+        f"{cold_c['programs_built']} built, warm {warm_c['hits']} hits, 0 built; launches "
+        f"{out['example_serve_batch']}; {len(shapes)} kernel signatures; "
+        f"{time.monotonic() - t0:.1f}s")
+
+    # train_e2e: 300 steps from a fresh checkpoint directory, launches pinned a step
+    t0 = time.monotonic()
+    ckpt = tempfile.mkdtemp(prefix="train_e2e_ckpt_")
+    try:
+        stamps, shapes = [], {}
+        reset_launches()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        with capturing_kernels(ops, shapes):
+            ns, printed = run_example("train_e2e", ["--ckpt-dir", ckpt],
+                                      on_step=lambda step, m: stamps.append(time.monotonic()))
+        peak = torch.cuda.max_memory_allocated() - base
+        counts = _launch_counts()
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    want = {k: E2E_STEPS * E2E_LAUNCHES.get(k, 0) for k in counts if k != "fused"}
+    assert {k: v for k, v in counts.items() if k != "fused"} == want and not counts["fused"], \
+        (counts, want)
+    out["example_train_e2e"] = counts
+    out["example_train_e2e_shapes"] = shapes
+    steps = [b - a for a, b in zip(stamps, stamps[1:])]
+    step_s = statistics.median(steps)
+    first, last = (float(x) for x in re.search(r"loss (\S+) → (\S+)", printed).groups())
+    n_params = re.search(r"(\S+)M params", printed).group(1)
+    say(f"[example-train-e2e] {card}: {E2E_STEPS} steps of config_100m ({n_params}M params, "
+        f"f32) at 8 x 256 in {time.monotonic() - t0:.1f}s with 4 checkpoints; loss {first:.3f} "
+        f"-> {last:.3f}; median step {step_s:.4f}s ({8 * 256 / step_s:.0f} tokens/s; steps "
+        f"{min(steps):.4f}-{max(steps):.4f}s), peak memory {peak / 2**30:.3f} GiB above the "
+        f"{base / 2**30:.3f} GiB the process held; launches a step "
+        f"{ {k: v // E2E_STEPS for k, v in want.items() if v} } (pinned)")
+
+    # one train_e2e step from one state and batch: the kernels against the plain versions
+    cfg = ns["config_100m"]()
+    opt = make_optimizer(OptConfig(lr=6e-4, warmup_steps=E2E_STEPS // 10, total_steps=E2E_STEPS))
+    state = make_train_state_fn(cfg, opt, device=dev)()
+    batch = to_device(SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=256,
+                                             global_batch=8)).batch(0), dev)
+    got = {}
+    for impl in (None, "ref"):
+        live = map_leaves(lambda t: t.detach().requires_grad_(True), state["params"])
+        loss, _ = loss_fn(cfg, live, batch, impl=impl)
+        got[impl] = (loss.detach(), torch.autograd.grad(loss, leaves(live)))
+    torch.testing.assert_close(got[None][0], got["ref"][0], **BWD_TOL)
+    worst, worst_rel = 0.0, 0.0
+    for a, b in zip(got[None][1], got["ref"][1]):
+        torch.testing.assert_close(a, b, **BWD_TOL)
+        worst = max(worst, ((a - b).abs() / (BWD_TOL["atol"] + BWD_TOL["rtol"] * b.abs()))
+                    .max().item())
+        rel = ((a - b).norm() / b.norm()).item()
+        assert rel <= E2E_GRAD_REL, (tuple(a.shape), rel)
+        worst_rel = max(worst_rel, rel)
+    say(f"[example-train-e2e] one step from the same state and batch, kernels against the "
+        f"plain versions: loss {got[None][0].item():.6f} against {got['ref'][0].item():.6f}; "
+        f"{len(got[None][1])} gradient leaves within BWD_TOL, the worst element at "
+        f"{worst:.3f} of it; the worst leaf's relative norm {worst_rel:.3e} "
+        f"(held to {E2E_GRAD_REL:g})")
+    del state, got
+    torch.cuda.empty_cache()
     return out
 
 
@@ -3104,6 +3439,44 @@ def main() -> int:
          **{k: rec[k] for k in keys}})
     torch.cuda.empty_cache()
 
+    # -- 35. the examples, as a user runs them, on the default device ---------------
+    t35 = time.monotonic()
+    example_counts = examples_phase(torch, dev, f"{name} ({smi})")
+    # each kernel at every shape the examples' paths gave it, by phase 21's method,
+    # beside its calls there
+    example_rows = 0
+    for path in ("example_serve_batch", "example_train_e2e"):
+        for (kname, shapes, kw), calls in example_counts.pop(f"{path}_shapes").items():
+            kw = dict(kw)
+            ins = [randn(*shape, dtype=dtype) for shape, dtype in shapes]
+            if kname == "rmsnorm_fwd":
+                rec = rms_case(ins[0], 1 + 0.1 * randn(shapes[1][0][0]))
+            elif kname == "rmsnorm_bwd":
+                rec = rms_bwd_case(ins[0], 1 + 0.1 * randn(shapes[1][0][0]), ins[2])
+            elif kname == "flash_attention_fwd":
+                D_ = shapes[0][0][3]
+                assert math.isclose(kw["sm_scale"], D_ ** -0.5), kw  # the cases' default
+                case = fa_lse_case if kw.get("return_lse") else fa_case
+                rec = case(*ins, kw["causal"], kw["window"])
+            else:
+                (Bt, S_, H_, P_), (G_, N_) = shapes[0][0], shapes[3][0][2:]
+                rec = ssd_case(*ssd_inputs(Bt, S_, H_, P_, G_, N_, shapes[0][1]), timed=True)
+            label = " ".join(f"{tuple(shape)}" for shape, _ in shapes[:3]) + \
+                f" {str(shapes[0][1]).removeprefix('torch.')}" + \
+                "".join(f" {k}={v}" for k, v in sorted(kw.items()) if k != "sm_scale")
+            records[kname].setdefault("at_shapes", []).append(
+                {"shape": label, "path": path, "calls_on_path": calls,
+                 **{k: rec[k] for k in keys}})
+            if kname == "flash_attention_fwd":
+                say(f"[examples-kernels] K4 f32 (SIMT) {label} on {path}: kernel_ms "
+                    f"{rec['ms']:.4f} against SDPA's {rec['library_ms']:.4f} in f32: "
+                    f"{rec['ms'] / rec['library_ms']:.2f}x; {rec['bound_ms'] / rec['ms']:.1%} of "
+                    f"its bound ({rec['bound_by']})")
+            example_rows += 1
+    torch.cuda.empty_cache()
+    say(f"[examples] phase 35 in {time.monotonic() - t35:.1f}s, {example_rows} kernel rows at "
+        f"the examples' shapes")
+
     # -- records ---------------------------------------------------------------
     # times at the training shapes (K2, K3, K4) and the mamba2 serving shape (K5);
     # launches over the main path of each kernel's own slice (the 20 timed training
@@ -3144,7 +3517,9 @@ def main() -> int:
                                   rec),
                               **{path: spmd_launches(path, rec) for path in spmd_paths},
                               **{path: sharded_launches(c, rec)
-                                 for path, c in sharded_counts.items()}},
+                                 for path, c in sharded_counts.items()},
+                              **{path: launches_on(c, {}, rec)
+                                 for path, c in example_counts.items()}},
          **({key: rec[key] for key in ("at_shapes", "per_shard") if key in rec})}
         for rec in records.values()
     ]
@@ -3160,4 +3535,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--spmd-rank"]:
         sys.exit(spmd_rank(sys.argv[2], int(sys.argv[3])))
+    if sys.argv[1:2] == ["--dryrun-peak"]:
+        sys.exit(dryrun_peak())
     sys.exit(sharded_rank(sys.argv[2]) if sys.argv[1:2] == ["--sharded-rank"] else main())

@@ -68,7 +68,7 @@ from .opt import OptStats, count_nodes, optimize
 from .parser import MyiaSyntaxError, parse_function
 from .spmd import SpmdError
 from .torch_backend import compile_graph_spmd, mesh_descriptor
-from .dtypes import default_device, device_of, np_dtype, to_numpy
+from .dtypes import default_device, device_of, device_results, np_dtype, to_numpy
 from .values import is_array_like
 from .vm import VM
 
@@ -612,13 +612,16 @@ class MyiaFunction:
                 runner.degraded = "vm_oracle"
                 return runner
         lowered = try_lower(g, fuse=self.fuse) if self.backend == "torch" else None
+        # the torch backend returns what the reference's jit does: Python scalars
+        # as 0-d tensors on the call's device; the "vm" backend returns the VM's
         if lowered is not None:
             def runner(*args):
-                return lowered(*args)
+                return device_results(lowered(*args), args)
         else:
             def runner(*args):
                 with default_device(device_of(args)):
-                    return VM().call(g, args)
+                    out = VM().call(g, args)
+                return out if self.backend == "vm" else device_results(out, args)
 
         runner.lowered = lowered is not None
         runner.fn = lowered

@@ -26,7 +26,7 @@ import torch
 
 __all__ = [
     "np_dtype", "torch_dtype", "canon", "to_tensor", "to_numpy", "BF16", "default_device",
-    "device_of",
+    "device_of", "device_results",
 ]
 
 try:  # optional: the reference's numpy bfloat16
@@ -111,16 +111,31 @@ def default_device(device: Any) -> Iterator[None]:
 
 def device_of(args: Any) -> torch.device:
     """The device a call's tensors live on: the first non-CPU tensor's (tuples
-    searched), else the CPU."""
-    stack = [args]
+    searched), else the first CPU tensor's, else torch's default device
+    (``torch.set_default_device`` / ``with torch.device(...)``): a call with
+    only Python scalars runs where ``jnp.asarray`` would put them, on the
+    default device."""
+    stack, cpu = [args], None
     while stack:
         a = stack.pop()
         if isinstance(a, torch.Tensor):
             if a.device.type != "cpu":
                 return a.device
+            cpu = a.device
         elif isinstance(a, (tuple, list)):
             stack.extend(reversed(a))
-    return torch.device("cpu")
+    return cpu if cpu is not None else torch.get_default_device()
+
+
+def device_results(out: Any, args: tuple) -> Any:
+    """A program's result as ``jax.jit`` returns one: a Python scalar (also inside
+    tuples) becomes a 0-d tensor of the reference's type on the call's device
+    (:func:`device_of`).  Tensors, closures and other values pass unchanged."""
+    if isinstance(out, (bool, int, float)):
+        return to_tensor(out, device_of(args))
+    if isinstance(out, tuple):
+        return tuple(device_results(o, args) for o in out)
+    return out
 
 
 def to_tensor(x: Any, device: Any = None) -> torch.Tensor:

@@ -18,7 +18,8 @@ import tempfile
 import torch
 
 __all__ = [
-    "init_distributed", "line_out", "make_local_mesh", "make_production_mesh", "pick_backend",
+    "init_distributed", "line_out", "make_fake_mesh", "make_local_mesh", "make_production_mesh",
+    "pick_backend",
 ]
 
 
@@ -28,16 +29,23 @@ FAKE_WORLD = 512
 
 def make_production_mesh(*, multi_pod: bool = False):
     """16×16 = 256 chips per pod (single pod) or 2×16×16 = 512 chips, as the
-    reference's, over torch's ``fake`` process group: a world of
-    :data:`FAKE_WORLD` ranks in this one process, in which this process is rank 0
-    and every collective returns at once.  It is for the dry run
-    (``repro_torch.launch.dryrun``), under ``FakeTensorMode``: nothing is
-    allocated or sent.  A fake world cannot share a process with a real one: this
-    raises if another process group is up.
+    reference's, over torch's ``fake`` process group (:func:`make_fake_mesh`).
 
     Axes: ``pod``, data-parallel across the cross-pod links; ``data``, the batch,
     FSDP and ZeRO axis; ``model``, the tensor and expert parallel axis, kept
     innermost."""
+    if multi_pod:
+        return make_fake_mesh((2, 16, 16), ("pod", "data", "model"))
+    return make_fake_mesh((16, 16), ("data", "model"))
+
+
+def make_fake_mesh(shape: tuple[int, ...], axes: tuple[str, ...]):
+    """A mesh of ``shape`` over torch's ``fake`` process group: a world of
+    :data:`FAKE_WORLD` ranks in this one process, in which this process is rank 0
+    and every collective returns at once.  It is for the dry run
+    (``repro_torch.launch.dryrun``), under ``FakeTensorMode``: nothing is
+    allocated or sent.  A fake world cannot share a process with a real one: this
+    raises if another process group is up."""
     import torch.distributed as dist
     from torch.distributed.device_mesh import DeviceMesh
     from torch.testing._internal.distributed.fake_pg import FakeStore
@@ -47,8 +55,6 @@ def make_production_mesh(*, multi_pod: bool = False):
     elif dist.get_backend() != "fake":
         raise RuntimeError("the production mesh lives in a fake world; this process has a "
                            f"{dist.get_backend()} process group")
-    shape = (2, 16, 16) if multi_pod else (16, 16)
-    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
     n = 1
     for s in shape:
         n *= s

@@ -1,6 +1,6 @@
-"""The port stands alone: nothing under ``src/repro_torch/`` nor ``chip_smoke.py``
-imports ``jax`` or the reference package ``repro``, and importing the port's
-modules loads no jax."""
+"""The port stands alone: nothing under ``src/repro_torch/``, nor the port's
+examples (``examples/torch_*.py``), nor ``chip_smoke.py`` imports ``jax`` or the
+reference package ``repro``, and importing the port's modules loads no jax."""
 
 import ast
 import pathlib
@@ -10,7 +10,9 @@ import sys
 import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+EXAMPLES = sorted((ROOT / "examples").glob("torch_*.py"))
+PORT_FILES = (sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + EXAMPLES
+              + [ROOT / "chip_smoke.py"])
 
 
 def _forbidden(module: str) -> bool:
@@ -44,6 +46,8 @@ def test_port_files_exist():
                    "launch/mesh.py", "configs/base.py", "distributed/sharding.py",
                    "distributed/collectives.py", "launch/dryrun.py", "models/boundary.py"):
         assert f"src/repro_torch/{module}" in names, module
+    for example in ("quickstart", "train_lm_myia", "serve_batch", "train_e2e"):
+        assert f"examples/torch_{example}.py" in names, example
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: p.relative_to(ROOT).as_posix())
@@ -68,7 +72,7 @@ def _top_level_imports(path: pathlib.Path) -> list[str]:
 
 
 @pytest.mark.parametrize(
-    "path", [p for p in PORT_FILES if "repro_torch" in p.parts],
+    "path", [p for p in PORT_FILES if "repro_torch" in p.parts or p in EXAMPLES],
     ids=lambda p: p.relative_to(ROOT).as_posix(),
 )
 def test_no_module_level_triton_import(path):
@@ -160,6 +164,31 @@ def test_importing_the_spmd_tier_loads_no_jax_or_triton():
         "import sys\n"
         "import repro_torch.core, repro_torch.core.oo_tape, repro_torch.core.spmd\n"
         "import repro_torch.parallel, repro_torch.launch.mesh\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro', 'triton'))\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code],
+        cwd=ROOT,
+        env={"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"},
+        capture_output=True,
+        text=True,
+        timeout=240,
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+def test_importing_the_examples_loads_no_jax_or_triton():
+    """The four examples load (without running) and bring in neither jax, the
+    reference, nor triton."""
+    code = (
+        "import runpy, sys\n"
+        f"for path in {[str(p) for p in EXAMPLES]!r}:\n"
+        "    ns = runpy.run_path(path)\n"
+        "    assert callable(ns['main']), path\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro', 'triton'))\n"
         "assert not bad, bad\n"
