@@ -8,9 +8,10 @@ Drives ``repro_torch`` only (never ``repro`` or ``jax``), on one CUDA device:
 1. the device: its name, and its power limit as nvidia-smi reports it;
 2. builds the hand-written kernels from ``src/repro_torch/csrc`` with nvcc, and
    prints ptxas's registers and spills of K4's tensor-core instantiations (bf16,
-   head_dim 128 and 256), of K2 and of K5's five kernels (its three passes in bf16 and
-   f32; none of K4's or K5's may spill), and, where ``cuobjdump`` is installed, the
-   HMMA instructions of K5's bf16 passes (there must be some);
+   head_dim 128 and 256), of K2, of K3's main kernel and of K5's five kernels (its
+   three passes in bf16 and f32; none of K3's, K4's or K5's may spill), and, where
+   ``cuobjdump`` is installed, the HMMA instructions of K5's bf16 passes (there must
+   be some);
 3. holds each kernel against its plain PyTorch version on the card, at the test
    shapes (K4 in f32 on its SIMT kernel and in bf16 on its tensor-core kernel, plus
    bf16 cases at head_dim 256 with window 512, 16 query heads on 8 kv heads at Sq
@@ -31,9 +32,8 @@ Drives ``repro_torch`` only (never ``repro`` or ``jax``), on one CUDA device:
    the kernel launches of the run;
 6. runs the same prefill with the plain versions and compares the logits;
 7. holds the training path's kernels against their plain versions: the rmsnorm
-   backward (K3), the attention kernel's logsumexp (K4, also at phase 3's added bf16
-   cases), and the gradients of the
-   ops' autograd Functions against plain autograd; and the head's bf16 product with
+   backward (K3: two calls bitwise equal), the attention kernel's logsumexp (K4, also
+   at phase 3's added bf16 cases), and the gradients of the ops' autograd Functions against plain autograd; and the head's bf16 product with
    an f32 result against f32 products, forward and backward;
 8. checks one small f32 train step, the card with its kernels against the CPU with
    the plain versions;
@@ -150,9 +150,11 @@ Drives ``repro_torch`` only (never ``repro`` or ``jax``), on one CUDA device:
 32. the model zoo's placed steps on a 1x1 NCCL mesh: internlm2-1.8b's train step and
     gemma3-1b's prefill and decode, bitwise equal to the single-device path;
 33. two ranks sharing the card over gloo: ``launch.train`` on 2x1 and 1x2 meshes, and this
-    script's ``--sharded-rank`` program holding each rank's f32 step (and mamba2's prefill
-    on 1x2) to the single-device values;
-34. the dry run (``repro_torch.launch.dryrun``) of three production cells on fake meshes,
+    script's ``--sharded-rank`` program holding each rank's f32 step (and, on 1x2,
+    mamba2's prefill and internlm2's placed prefill and greedy decode, the attention over
+    the cache on each rank's heads) to the single-device values;
+34. the dry run (``repro_torch.launch.dryrun``) of five production cells on fake meshes
+    (among them internlm2's and mamba2's ``decode_32k``, the decode on local shards),
     in processes of their own beside phases 32-33, with their memory, bytes accessed and
     collective bytes; and the peak it computes for phase 32's train step (8 x 1024, the
     plain versions) on a fake 1x1 mesh (this script's ``--dryrun-peak`` process) against
@@ -321,7 +323,13 @@ SH_SERVE_B = 4
 SH_LOSS_RTOL, SH_PARAM_RTOL, SH_PARAM_ATOL = 2e-5, 2e-4, 1e-6
 # the dry run's cells (phase 34): (arch, cell, mesh)
 SH_DRYRUN = (("internlm2-1.8b", "train_4k", "single"), ("gemma3-1b", "decode_32k", "single"),
-             ("grok-1-314b", "train_4k", "multi"))
+             ("grok-1-314b", "train_4k", "multi"), ("internlm2-1.8b", "decode_32k", "single"),
+             ("mamba2-370m", "decode_32k", "single"))
+# phase 33's placed decode (internlm2, SH_LAYERS layers, f32, on 1x2): the logits of the
+# prefill and of each step within this share of the largest single-device logit (the
+# sharded tests' rtol: the model axis sums the row-parallel products in two halves), and
+# the greedy picks equal wherever the single device's top two logits are further apart
+SH_DECODE_REL = 2e-4
 
 # The examples (phase 35): each examples/torch_<name>.py runs in this process as ``python
 # examples/torch_<name>.py`` runs it (its module loaded by runpy; its __main__ block is a
@@ -2152,7 +2160,14 @@ def sharded_phases(torch, dev, card: str) -> dict:
                        f"{c['mamba']['within_tol']}); the plain chunked path cut the same "
                        f"way: {c['mamba']['plain_err']:.3e}, {c['mamba']['plain_rel']:.2e}; "
                        f"launches {c['mamba']['launches']}"
-                       if c.get("mamba") else ""))
+                       if c.get("mamba") else "")
+                    + (f"; internlm2 f32 ({SH_LAYERS} layers) placed decode, prefill "
+                       f"{SH_SERVE_B} x {SH_S} and {SH_GEN} steps fed the single-device greedy "
+                       f"tokens: logits within {c['decode']['err']:.3e} ({c['decode']['rel']:.2e} "
+                       f"of the largest, bound {SH_DECODE_REL}), greedy picks differ at "
+                       f"{c['decode']['flips']} of {c['decode']['picks']}; "
+                       f"{c['decode']['step_s']}s a step; launches "
+                       f"{c['decode']['launches']}" if c.get("decode") else ""))
             trace = checks[0]["trace"]
             assert trace and trace["wall_ms"] > 0 and trace["device_busy_ms"] > 0, trace
             say(f"[sharded-{data}x{model}] {card}: rank 0's last step under torch.profiler: wall "
@@ -2164,6 +2179,9 @@ def sharded_phases(torch, dev, card: str) -> dict:
             out[f"train_sharded_{data}x{model}"] = checks[0]["launches"]
             if checks[0].get("mamba"):
                 out[f"serve_mamba2_sharded_{data}x{model}"] = checks[0]["mamba"]["launches"]
+            if checks[0].get("decode"):
+                for part in ("prefill", "decode"):
+                    out[f"{part}_placed_{data}x{model}"] = checks[0]["decode"]["launches"][part]
 
     # -- 34 (collected). the dry run's processes, started before phase 32 ----------------
         records = []
@@ -2370,6 +2388,66 @@ def examples_phase(torch, dev, card: str) -> dict:
     return out
 
 
+def _sh_decode(torch, cfg, mesh, dev) -> dict:
+    """Phase 33's placed decode on this rank: ``cfg``'s prefill of SH_SERVE_B x SH_S and
+    SH_GEN greedy steps through ``jit_prefill`` / ``jit_decode_step`` (the attention over
+    the cache on this rank's heads, ``boundary.decode_attention``), fed the single-device
+    greedy tokens, against the single-device prefill and steps on the same card."""
+    from repro_torch.distributed import jit_decode_step, jit_prefill, make_rules, make_serve_fns
+    from repro_torch.kernels import reset_launches
+    from repro_torch.launch.serve import make_prompts
+    from repro_torch.models import init_params
+    from repro_torch.parallel import MeshContext
+
+    params = init_params(cfg, seed=0, device=dev)
+    prompts = make_prompts(cfg, SH_SERVE_B, SH_S, dev)
+    max_len = SH_S + SH_GEN
+    pre, dec = make_serve_fns(cfg, max_len)
+    with torch.no_grad():
+        lg, caches = pre(params, prompts)
+        want, toks = [lg], []
+        for i in range(SH_GEN):
+            toks.append(want[-1].argmax(-1).to(torch.int32))
+            lg, caches = dec(params, caches, toks[-1], SH_S + i)
+            want.append(lg)
+    del caches
+    ctx = MeshContext(mesh, make_rules(cfg))
+    fp, _ = jit_prefill(cfg, ctx, max_len, params, {"tokens": prompts})
+    reset_launches()
+    lg, caches = fp(params, prompts)
+    torch.cuda.synchronize()
+    launches = {"prefill": _launch_counts()}
+    fd, _, _ = jit_decode_step(cfg, ctx, max_len, params, caches, SH_SERVE_B)
+    got = [lg]
+    reset_launches()
+    t0 = time.perf_counter()
+    for i in range(SH_GEN):
+        lg, caches = fd(params, caches, toks[i], SH_S + i)
+        got.append(lg)
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / SH_GEN
+    launches["decode"] = _launch_counts()
+    scale = max(a.abs().max().item() for a in want)
+    err = max((a - b).abs().max().item() for a, b in zip(want, got, strict=True))
+    picks = flips = 0
+    for a, b in zip(want, got, strict=True):
+        top2 = a.topk(2, dim=-1).values
+        differ = a.argmax(-1) != b.argmax(-1)
+        picks += differ.numel()
+        flips += int(differ.sum())
+        assert not bool((differ & (top2[:, 0] - top2[:, 1] > 2 * SH_DECODE_REL * scale)).any())
+    out = {"err": err, "rel": err / scale, "picks": picks, "flips": flips,
+           "step_s": round(step_s, 4), "launches": launches}
+    assert err <= SH_DECODE_REL * scale, out
+    if dev.type == "cuda":  # K2 on each rank's rows, K4 on its heads in the prefill only
+        L = cfg.n_layers
+        assert launches["prefill"]["rmsnorm_fwd"] == 2 * L + 1, launches
+        assert launches["prefill"]["flash_attention_fwd"] == L, launches
+        assert launches["decode"]["rmsnorm_fwd"] == (2 * L + 1) * SH_GEN, launches
+        assert launches["decode"]["flash_attention_fwd"] == 0, launches
+    return out
+
+
 def sharded_rank(argv_json: str) -> int:
     """Phase 33's rank program, started from this script by ``torch.distributed.run``
     on a mesh of two ranks sharing the card over gloo: internlm2-1.8b in f32 at full
@@ -2467,6 +2545,9 @@ def sharded_rank(argv_json: str) -> int:
                            "launches": launches, "local_heads": mcfg.n_ssm_heads // model}
         assert err / scale <= MAMBA_F32_REL_BOUND, report["mamba"]
         assert err <= 4 * errs["chunked"], report["mamba"]
+        del params
+        torch.cuda.empty_cache()
+        report["decode"] = _sh_decode(torch, cfg, mesh, dev)
     line_out("SHARDED_CHECK " + json.dumps(report))
     # the group ends as the launcher's does, and a crash here fails the phase
     dist.barrier()
@@ -2528,6 +2609,7 @@ def main() -> int:
     watched = {"fa_fwd_tc_kernelILi128E": "K4 tensor-core bf16, head_dim 128",
                "fa_fwd_tc_kernelILi256E": "K4 tensor-core bf16, head_dim 256",
                "rmsnorm_fwd_kernel": "K2 warp-per-row",
+               "rmsnorm_bwd_kernel": "K3 main kernel",
                **SSD_ENTRIES}
     seen = set()
     for entry, regs, spill_st, spill_ld in ptxas_entries(build.build_log()):
@@ -2537,7 +2619,7 @@ def main() -> int:
                 say(f"[build] {label} ({entry[-60:]}): {regs} registers at entry"
                     f"{' (setmaxnreg: consumers 240, producer 24)' if 'fa_fwd_tc' in key else ''}"
                     f", {spill_st} bytes spill stores, {spill_ld} bytes spill loads")
-                if "rmsnorm" not in key:  # K4's tensor-core and every K5 instantiation
+                if key != "rmsnorm_fwd_kernel":  # K3's, K4's tensor-core and K5's
                     assert spill_st == spill_ld == 0, (entry, spill_st, spill_ld)
     assert seen == set(watched), f"the build log names no {set(watched) - seen}"
     hmma = sass_counts(build.library_path(), "HMMA", [k for k in SSD_ENTRIES if "_tc" in k])
@@ -2641,9 +2723,11 @@ def main() -> int:
 
 
     def rms_bwd_case(x, w, dy):
-        """K3 against its plain version: errors, kernel / plain / F.rms_norm-backward
-        times, bound."""
+        """K3 against its plain version: errors, two calls bitwise equal, kernel / plain /
+        F.rms_norm-backward times, bound."""
         dx, dw = rmsnorm_bwd(x, w, dy)
+        dx2, dw2 = rmsnorm_bwd(x, w, dy)
+        assert torch.equal(dx2, dx) and torch.equal(dw2, dw), "K3 is not deterministic"
         want_dx, want_dw = ref.rmsnorm_bwd_ref(x, w, dy)
         tol = BWD_TOL if x.dtype == torch.float32 else TOL["bfloat16"]
         torch.testing.assert_close(dx.float(), want_dx.float(), **tol)
@@ -2656,8 +2740,8 @@ def main() -> int:
         w_lib = w.to(x.dtype).requires_grad_(True)
         y_lib = F.rms_norm(x_lib, (x.shape[-1],), w_lib, 1e-6)
         D_ = x.shape[-1]
-        blocks = build.load().rmsnorm_bwd_blocks(x.numel() // D_, D_,
-                                                 build.DTYPE_CODES[dtype_name(x)])
+        blocks = min(x.numel() // D_, build.load().rmsnorm_bwd_blocks(
+            D_, build.DTYPE_CODES[dtype_name(x)]))
         # what the function must move: x and dy read, dx written, w read, dw written
         # (the kernel's per-block dw partials are its own cost, not the function's)
         nbytes = 3 * x.numel() * x.element_size() + 2 * D_ * 4
@@ -2670,9 +2754,10 @@ def main() -> int:
                      time_ms(torch, lambda: ref.rmsnorm_bwd_ref(x, w, dy)), bound_ms, bound_by,
                      lib)
         say(f"[kernels] rmsnorm_bwd {dtype_name(x)} x{tuple(x.shape)}: max_abs_err dx {err:.3e} "
-            f"dw {dw_err.max().item():.3e} {fmt(kern)} plain_ms {rec['plain_ms']:.4f}; "
-            f"F.rms_norm backward {fmt(lib)}; bound_ms {bound_ms:.6f} ({bound_by}, "
-            f"{nbytes / 1e6:.1f} MB, {blocks} blocks), {bound_ms / rec['ms']:.1%} of it")
+            f"dw {dw_err.max().item():.3e}, two calls bitwise equal; {fmt(kern)} (2 grid "
+            f"launches, the dw pass a programmatic dependent) plain_ms {rec['plain_ms']:.4f}; F.rms_norm backward {fmt(lib)}; "
+            f"bound_ms {bound_ms:.6f} ({bound_by}, {nbytes / 1e6:.1f} MB, {blocks} blocks), "
+            f"{bound_ms / rec['ms']:.1%} of it")
         return rec
 
     def fa_lse_case(q, k, v, causal, window):

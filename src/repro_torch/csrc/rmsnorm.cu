@@ -27,15 +27,33 @@
 // _bwd_kernel), which emitted dx and one partial dw per 256-row grid step, summed by
 // its caller.  Bound on the H100: bytes, as the forward (x and dy read once, dx
 // written once: about 100 MB at the internlm2 training shape (8, 1024, 2048) bf16,
-// ~10 operations per value).  Blocks here run in parallel, so the TPU's sequential
-// grid becomes a loop: a grid of as many blocks as fit on the card at once, each
-// walking a share of the rows.  Per row a thread loads its columns of x and dy once
-// into registers, the block reduces sum(x^2) and sum(dy*w*x) together (warp
-// shuffles, one shared-memory step), and the thread writes dx from the registers.
-// Each thread keeps the dw partials of its own columns in registers across all its
-// rows, and the block writes one f32 row of partials at the end: no atomics, and the
-// caller's sum over the (blocks, D) partials is deterministic.  The columns a thread
-// owns are tid + k * blockDim (k < VPT), so a warp's loads are contiguous.
+// ~10 operations per value).  So the design is the forward's: each byte moves once,
+// in 16-byte lane-interleaved vectors, and nothing synchronises per row beyond the
+// warps that share it.
+//   - A warp per row, or a group of WPR warps for rows wider than 4 vectors a lane
+//     cover (1024 bf16 or 512 f32 columns; kBwdVectors), each lane then holding 16
+//     values (two bf16 or four f32 vectors; four bf16 ones spill there).  Each lane
+//     holds its vectors
+//     of x and dy raw in registers from the two sums to the write of dx; sum(x^2)
+//     and sum(dy*w*x) are warp shuffles, and a group of several warps adds its warps'
+//     sums through one double-buffered shared-memory slot and one named barrier of
+//     its own warps per row.  w is read once per block into shared memory.
+//   - A persistent grid: one block of 16 warps an SM (two where the registers allow),
+//     each group walking rows with a stride of all the grid's groups, rows dealt to
+//     the blocks first.  The registers hold two rows a group: the next row's loads
+//     are issued before the current row's sums, so a group keeps a row in flight
+//     while it reduces and writes the last.  That leaves no room for dw partials in
+//     registers, so each group adds its rows' dy*x*r into its own f32 row in shared
+//     memory (each column is one lane's); at the end the block adds its groups' rows
+//     in group order and writes one f32 row of partials: at most one a block.
+//   - dw is finished by rmsnorm_bwd_dw_kernel, a column pass over those partials in
+//     a fixed order (blocks strided over 16 warps, then the warps in order): two calls
+//     on the same inputs give bitwise-equal dw, and nothing is atomic.  It is
+//     launched with programmatic dependent launch, so that its launch overlaps the
+//     main kernel's tail (it waits for the whole main grid before reading); that
+//     measured faster than plain stream order at every main-path shape.
+// An unaligned base or a width that is no multiple of the vector takes scalar loads
+// and stores in the same kernel (the `vec` flag), as the forward does.
 
 #include <stdint.h>
 
@@ -104,6 +122,11 @@ struct Vec16<float> {
   static __device__ __forceinline__ Raw pack(const float (&v)[4]) {
     return make_float4(v[0], v[1], v[2], v[3]);
   }
+  // hides the value from the compiler, so that it unpacks the raw words again and
+  // keeps no unpacked copy alive across a barrier (K3's register budget)
+  static __device__ __forceinline__ void opaque(Raw& r) {
+    asm volatile("" : "+f"(r.x), "+f"(r.y), "+f"(r.z), "+f"(r.w));
+  }
 };
 
 template <>
@@ -119,6 +142,9 @@ struct Vec16<__nv_bfloat16> {
   static __device__ __forceinline__ Raw pack(const float (&v)[8]) {
     return make_uint4(pack_bf16x2(v[0], v[1]), pack_bf16x2(v[2], v[3]), pack_bf16x2(v[4], v[5]),
                       pack_bf16x2(v[6], v[7]));
+  }
+  static __device__ __forceinline__ void opaque(Raw& r) {
+    asm volatile("" : "+r"(r.x), "+r"(r.y), "+r"(r.z), "+r"(r.w));
   }
 };
 
@@ -222,168 +248,346 @@ int fwd_dispatch(const void* xp, const void* wp, void* yp, long long rows, int D
   return static_cast<int>(cudaGetLastError());
 }
 
-// the sums of a and b over the block, in one pass of shuffles and one shared step
-__device__ __forceinline__ float2 block_sum2(float a, float b) {
-  __shared__ float2 partial[32];
-  __shared__ float2 total;
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    a += __shfl_xor_sync(0xffffffffu, a, off);
-    b += __shfl_xor_sync(0xffffffffu, b, off);
-  }
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  if (lane == 0) partial[warp] = make_float2(a, b);
-  __syncthreads();
-  if (warp == 0) {
-    const int n_warps = (blockDim.x + 31) >> 5;
-    float2 v = lane < n_warps ? partial[lane] : make_float2(0.f, 0.f);
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      v.x += __shfl_xor_sync(0xffffffffu, v.x, off);
-      v.y += __shfl_xor_sync(0xffffffffu, v.y, off);
-    }
-    if (lane == 0) total = v;
-  }
-  __syncthreads();
-  return total;
+constexpr int kBwdWarps = 16;  // warps a block
+constexpr int kBwdVectors = 4;  // 16-byte vectors a lane holds of x and of dy, at most
+constexpr int kBwdMaxWidth = 8192;
+constexpr int kBwdBlocksPerSM = 2;
+constexpr int kDwWarps = 16;  // warps of the dw column pass, 32 columns a block
+
+__device__ __forceinline__ void named_barrier(int id, int threads) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
 }
 
-constexpr int kBwdThreads = 256;
+// a row's vectors of x and dy, raw, in one lane's registers
+template <typename T, int NV>
+struct RowVecs {
+  typename Vec16<T>::Raw x[NV], dy[NV];
+};
 
-// VPT: columns per thread, a power of two with D <= VPT * kBwdThreads.
-template <typename T, int VPT>
-__global__ void __launch_bounds__(kBwdThreads)
+// Loads lane `lane`'s vectors of one row (vector (k * WPR + wg) * 32 + lane, k < NV):
+// 16-byte loads where `vec`, else masked scalar loads (zeros past D).
+template <typename T, int NV, int WPR>
+__device__ __forceinline__ void load_row(RowVecs<T, NV>& r, const T* __restrict__ xr,
+                                         const T* __restrict__ dyr, int D, int wg, int lane,
+                                         int vec) {
+  using V = Vec16<T>;
+  constexpr int VEC = V::N;
+#pragma unroll
+  for (int k = 0; k < NV; ++k) {
+    const int col = ((k * WPR + wg) * 32 + lane) * VEC;
+    if (vec && col < D) {
+      r.x[k] = *reinterpret_cast<const typename V::Raw*>(xr + col);
+      r.dy[k] = *reinterpret_cast<const typename V::Raw*>(dyr + col);
+    } else {
+      float xv[VEC], dv[VEC];
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) {
+        xv[e] = col + e < D ? to_f32(xr[col + e]) : 0.f;
+        dv[e] = col + e < D ? to_f32(dyr[col + e]) : 0.f;
+      }
+      r.x[k] = V::pack(xv);  // exact: the values came from T
+      r.dy[k] = V::pack(dv);
+    }
+  }
+}
+
+// NV: vectors a lane holds (a power of two, at most kBwdVectors); WPR: warps a row
+// (a power of two dividing kBwdWarps), with D <= R = WPR * 32 * NV * VEC.  Dynamic
+// shared memory: (1 + G) * R floats, G = kBwdWarps / WPR: w zero-padded to R, then
+// each group's dw partials, by column.
+template <typename T, int NV, int WPR>
+__global__ void __launch_bounds__(32 * kBwdWarps)
     rmsnorm_bwd_kernel(const T* __restrict__ x, const float* __restrict__ w,
                        const T* __restrict__ dy, T* __restrict__ dx,
-                       float* __restrict__ dw_part, long long rows, int D, float eps) {
-  const int tid = threadIdx.x;
-  float wv[VPT], dwacc[VPT];
-#pragma unroll
-  for (int k = 0; k < VPT; ++k) {
-    const int c = tid + k * kBwdThreads;
-    wv[k] = c < D ? w[c] : 0.f;
-    dwacc[k] = 0.f;
-  }
+                       float* __restrict__ dw_part, long long rows, int D, float eps,
+                       int vec) {
+  using V = Vec16<T>;
+  constexpr int VEC = V::N;
+  constexpr int G = kBwdWarps / WPR;  // rows a block holds at once
+  constexpr int R = WPR * 32 * NV * VEC;
+  extern __shared__ float4 smem4[];
+  float* ws = reinterpret_cast<float*>(smem4);
+  __shared__ float2 sums[2][kBwdWarps];
+
+  // the dw pass may be scheduled now: it waits for this whole grid before reading
+  asm volatile("griddepcontrol.launch_dependents;");
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = warp / WPR, wg = warp % WPR;
+  float* acc_s = ws + (1 + g) * R;  // this group's dw partials
+  const long long stride = static_cast<long long>(gridDim.x) * G;
+  long long row = static_cast<long long>(g) * gridDim.x + blockIdx.x;
+
+  RowVecs<T, NV> cur;
+  if (row < rows) load_row<T, NV, WPR>(cur, x + row * D, dy + row * D, D, wg, lane, vec);
+  // w (and zeros past D), and zeroed partials, while the first row is in flight
+  for (int i = threadIdx.x; i < R; i += blockDim.x) ws[i] = i < D ? w[i] : 0.f;
+  for (int i = threadIdx.x; i < G * R; i += blockDim.x) ws[R + i] = 0.f;
+  __syncthreads();
+
   const float inv_d = 1.f / static_cast<float>(D);
-  for (long long row = blockIdx.x; row < rows; row += gridDim.x) {
-    const T* xr = x + row * D;
-    const T* dyr = dy + row * D;
-    float xv[VPT], dyv[VPT];
-    float ss = 0.f, sdwx = 0.f;
+  int parity = 0;
+  for (; row < rows; row += stride) {
+    // the group's next row is in flight while this one is reduced and written
+    const long long next = row + stride;
+    RowVecs<T, NV> nxt;
+    if (next < rows)
+      load_row<T, NV, WPR>(nxt, x + next * D, dy + next * D, D, wg, lane, vec);
+    float ss = 0.f, sp = 0.f;
 #pragma unroll
-    for (int k = 0; k < VPT; ++k) {
-      const int c = tid + k * kBwdThreads;
-      xv[k] = c < D ? to_f32(xr[c]) : 0.f;
-      dyv[k] = c < D ? to_f32(dyr[c]) : 0.f;
-      ss += xv[k] * xv[k];
-      sdwx += dyv[k] * wv[k] * xv[k];
+    for (int k = 0; k < NV; ++k) {
+      const int col = ((k * WPR + wg) * 32 + lane) * VEC;
+      float xv[VEC], dv[VEC];
+      V::unpack(cur.x[k], xv);
+      V::unpack(cur.dy[k], dv);
+#pragma unroll
+      for (int e = 0; e < VEC; e += 4) {
+        const float4 wv = *reinterpret_cast<const float4*>(ws + col + e);
+        ss += xv[e] * xv[e] + xv[e + 1] * xv[e + 1] + xv[e + 2] * xv[e + 2] +
+              xv[e + 3] * xv[e + 3];
+        sp += dv[e] * wv.x * xv[e] + dv[e + 1] * wv.y * xv[e + 1] +
+              dv[e + 2] * wv.z * xv[e + 2] + dv[e + 3] * wv.w * xv[e + 3];
+      }
     }
-    const float2 sums = block_sum2(ss, sdwx);
-    const float r = rsqrtf(sums.x * inv_d + eps);
-    const float proj = sums.y * inv_d;
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      ss += __shfl_xor_sync(0xffffffffu, ss, off);
+      sp += __shfl_xor_sync(0xffffffffu, sp, off);
+    }
+    if constexpr (WPR > 1) {  // the row's warps add their sums, in warp order
+      if (lane == 0) sums[parity][warp] = make_float2(ss, sp);
+      named_barrier(1 + g, 32 * WPR);
+      ss = sp = 0.f;
+#pragma unroll
+      for (int j = 0; j < WPR; ++j) {
+        const float2 v = sums[parity][g * WPR + j];
+        ss += v.x;
+        sp += v.y;
+      }
+      parity ^= 1;  // the next row's slot: a warp reaches it only after this barrier
+    }
+    const float r = rsqrtf(ss * inv_d + eps);
+    const float proj = sp * inv_d;
     const float r3 = r * r * r;
     T* dxr = dx + row * D;
 #pragma unroll
-    for (int k = 0; k < VPT; ++k) {
-      const int c = tid + k * kBwdThreads;
-      if (c < D) {
-        const float dyw = dyv[k] * wv[k];
-        dxr[c] = from_f32<T>(r * dyw - xv[k] * r3 * proj);
-        dwacc[k] += dyv[k] * xv[k] * r;
+    for (int k = 0; k < NV; ++k) {
+      const int col = ((k * WPR + wg) * 32 + lane) * VEC;
+      if (col >= D) break;
+      V::opaque(cur.x[k]);
+      V::opaque(cur.dy[k]);
+      float xv[VEC], dv[VEC], out[VEC];
+      V::unpack(cur.x[k], xv);
+      V::unpack(cur.dy[k], dv);
+#pragma unroll
+      for (int e = 0; e < VEC; e += 4) {
+        const float4 wv = *reinterpret_cast<const float4*>(ws + col + e);
+        out[e] = r * (dv[e] * wv.x) - xv[e] * r3 * proj;
+        out[e + 1] = r * (dv[e + 1] * wv.y) - xv[e + 1] * r3 * proj;
+        out[e + 2] = r * (dv[e + 2] * wv.z) - xv[e + 2] * r3 * proj;
+        out[e + 3] = r * (dv[e + 3] * wv.w) - xv[e + 3] * r3 * proj;
+        float4 a = *reinterpret_cast<float4*>(acc_s + col + e);  // this lane's columns
+        a.x += dv[e] * xv[e] * r;
+        a.y += dv[e + 1] * xv[e + 1] * r;
+        a.z += dv[e + 2] * xv[e + 2] * r;
+        a.w += dv[e + 3] * xv[e + 3] * r;
+        *reinterpret_cast<float4*>(acc_s + col + e) = a;
+      }
+      if (vec) {
+        *reinterpret_cast<typename V::Raw*>(dxr + col) = V::pack(out);
+      } else {
+#pragma unroll
+        for (int e = 0; e < VEC; ++e)
+          if (col + e < D) dxr[col + e] = from_f32<T>(out[e]);
       }
     }
+    cur = nxt;
   }
+
+  // the block's dw partial row: the groups' partials added in group order
+  __syncthreads();
   float* part = dw_part + static_cast<long long>(blockIdx.x) * D;
+  for (int c = threadIdx.x; c < D; c += blockDim.x) {
+    float t = 0.f;
 #pragma unroll
-  for (int k = 0; k < VPT; ++k) {
-    const int c = tid + k * kBwdThreads;
-    if (c < D) part[c] = dwacc[k];
+    for (int j = 0; j < G; ++j) t += ws[(1 + j) * R + c];
+    part[c] = t;
   }
 }
 
-template <typename T, int VPT>
-int bwd_grid(long long rows) {
+// dw[c] = the sum of the blocks' partials dw_part[:, c], in a fixed order: warp j of
+// the block of column c adds the partial rows j, j + kDwWarps, ..., and the warps'
+// sums are added in warp order.  Every block waits for the main grid first (a no-op
+// unless launched as its programmatic dependent), so that no block ends before it.
+__global__ void __launch_bounds__(32 * kDwWarps)
+    rmsnorm_bwd_dw_kernel(const float* __restrict__ dw_part, float* __restrict__ dw,
+                          int blocks, int D) {
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+  __shared__ float warp_sum[kDwWarps][32];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int c = blockIdx.x * 32 + lane;
+  float s = 0.f;
+  if (c < D) {
+#pragma unroll 8
+    for (int b = warp; b < blocks; b += kDwWarps)
+      s += dw_part[static_cast<long long>(b) * D + c];
+  }
+  warp_sum[warp][lane] = s;
+  __syncthreads();
+  if (warp == 0 && c < D) {
+    float t = 0.f;
+#pragma unroll
+    for (int j = 0; j < kDwWarps; ++j) t += warp_sum[j][lane];
+    dw[c] = t;
+  }
+}
+
+// 16-byte vectors a lane holds of a row split over warps: 16 values in either dtype
+// (four bf16 vectors there need more than the 128 registers a thread may have, and spill)
+template <typename T>
+constexpr int bwd_split_vectors() { return Vec16<T>::N == 8 ? 2 : kBwdVectors; }
+
+// (NV, WPR) of the backward kernel for rows of width D of T: one warp a row while four
+// vectors a lane cover it, else the fewest warps (a power of two) that cover it with
+// bwd_split_vectors<T>() each.
+template <typename T>
+void bwd_shape(int D, int& nv, int& wpr) {
+  constexpr int VEC = Vec16<T>::N;
+  const int per_lane = (D + 32 * VEC - 1) / (32 * VEC);
+  nv = 1;
+  wpr = 1;
+  if (per_lane <= kBwdVectors) {
+    while (nv < per_lane) nv *= 2;
+    return;
+  }
+  nv = bwd_split_vectors<T>();
+  while (wpr * nv < per_lane) wpr *= 2;
+}
+
+// the backward kernel's dynamic shared memory: w and G rows of dw partials, R floats each
+template <typename T, int NV, int WPR>
+constexpr size_t bwd_smem() {
+  return static_cast<size_t>(1 + kBwdWarps / WPR) * WPR * 32 * NV * Vec16<T>::N * sizeof(float);
+}
+
+// the persistent grid's blocks on the current device, for as many rows as there may be:
+// at most kBwdBlocksPerSM an SM.  Sets the kernel's dynamic shared-memory limit there
+// first.
+template <typename T, int NV, int WPR>
+int bwd_grid() {
+  const size_t smem = bwd_smem<T, NV, WPR>();
   int device = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, rmsnorm_bwd_kernel<T, VPT>,
-                                                        kBwdThreads, 0);
+    err = cudaFuncSetAttribute(rmsnorm_bwd_kernel<T, NV, WPR>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, rmsnorm_bwd_kernel<T, NV, WPR>, 32 * kBwdWarps, smem);
   if (err != cudaSuccess || sms <= 0 || per_sm <= 0) return -1;
-  const long long blocks = static_cast<long long>(sms) * per_sm;
-  return static_cast<int>(rows < blocks ? rows : blocks);
+  return sms * (per_sm < kBwdBlocksPerSM ? per_sm : kBwdBlocksPerSM);
 }
 
-template <typename T, int VPT>
+// The main kernel, then the dw pass as its programmatic dependent: the pass's blocks
+// may be scheduled while the main grid's last blocks run, and wait for it to finish
+// (griddepcontrol.wait) before reading the partials.
+template <typename T, int NV, int WPR>
 int bwd_launch(const void* x, const void* w, const void* dy, void* dx, void* dw_part,
-               long long rows, int D, int blocks, float eps, cudaStream_t s) {
-  rmsnorm_bwd_kernel<T, VPT><<<blocks, kBwdThreads, 0, s>>>(
+               void* dw, long long rows, int D, int blocks, float eps, cudaStream_t s) {
+  const int vec = D % Vec16<T>::N == 0 &&
+                  ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(w) |
+                    reinterpret_cast<uintptr_t>(dy) | reinterpret_cast<uintptr_t>(dx)) & 15) == 0;
+  rmsnorm_bwd_kernel<T, NV, WPR><<<blocks, 32 * kBwdWarps, bwd_smem<T, NV, WPR>(), s>>>(
       static_cast<const T*>(x), static_cast<const float*>(w), static_cast<const T*>(dy),
-      static_cast<T*>(dx), static_cast<float*>(dw_part), rows, D, eps);
+      static_cast<T*>(dx), static_cast<float*>(dw_part), rows, D, eps, vec);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>((D + 31) / 32));
+  cfg.blockDim = dim3(32 * kDwWarps);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, rmsnorm_bwd_dw_kernel, static_cast<const float*>(dw_part),
+                           static_cast<float*>(dw), blocks, D);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
-// Calls fn<T, VPT>(args...) for the dtype code and the smallest VPT that covers D;
-// returns `bad` for a dtype or width the kernel has no instantiation for.
-template <typename T, template <typename, int> class Fn, typename R, typename... Args>
+// Calls Fn<T, NV, WPR>::run(args...) for the (NV, WPR) that bwd_shape gives D;
+// returns `bad` for a width the kernel has no instantiation for.
+template <typename T, template <typename, int, int> class Fn, typename R, typename... Args>
 R by_width(int D, R bad, Args... args) {
-  if (D <= kBwdThreads) return Fn<T, 1>::run(args...);
-  if (D <= 2 * kBwdThreads) return Fn<T, 2>::run(args...);
-  if (D <= 4 * kBwdThreads) return Fn<T, 4>::run(args...);
-  if (D <= 8 * kBwdThreads) return Fn<T, 8>::run(args...);
-  if (D <= 16 * kBwdThreads) return Fn<T, 16>::run(args...);
-  if (D <= 32 * kBwdThreads) return Fn<T, 32>::run(args...);
+  if (D <= 0 || D > kBwdMaxWidth) return bad;
+  int nv = 0, wpr = 0;
+  bwd_shape<T>(D, nv, wpr);
+  constexpr int SV = bwd_split_vectors<T>();
+  if (wpr == 1 && nv == 1) return Fn<T, 1, 1>::run(args...);
+  if (wpr == 1 && nv == 2) return Fn<T, 2, 1>::run(args...);
+  if (wpr == 1) return Fn<T, kBwdVectors, 1>::run(args...);
+  if constexpr (SV == kBwdVectors) {  // a bf16 row split takes at least four warps
+    if (wpr == 2) return Fn<T, SV, 2>::run(args...);
+  }
+  if (wpr == 4) return Fn<T, SV, 4>::run(args...);
+  if (wpr == 8) return Fn<T, SV, 8>::run(args...);
+  if (wpr == 16) return Fn<T, SV, 16>::run(args...);  // rows over 4096 values
   return bad;
 }
 
-template <typename T, int VPT>
+template <typename T, int NV, int WPR>
 struct GridFn {
-  static int run(long long rows) { return bwd_grid<T, VPT>(rows); }
+  static int run() { return bwd_grid<T, NV, WPR>(); }
 };
 
-template <typename T, int VPT>
+template <typename T, int NV, int WPR>
 struct LaunchFn {
   static int run(const void* x, const void* w, const void* dy, void* dx, void* dw_part,
-                 long long rows, int D, int blocks, float eps, cudaStream_t s) {
-    return bwd_launch<T, VPT>(x, w, dy, dx, dw_part, rows, D, blocks, eps, s);
+                 void* dw, long long rows, int D, int blocks, float eps, cudaStream_t s) {
+    return bwd_launch<T, NV, WPR>(x, w, dy, dx, dw_part, dw, rows, D, blocks, eps, s);
   }
 };
 
 }  // namespace
 }  // namespace repro_torch
 
-// Widest row the backward kernel takes (32 columns per thread of 256).
-extern "C" int rmsnorm_bwd_max_width() { return 32 * repro_torch::kBwdThreads; }
+// Widest row the backward kernel takes.
+extern "C" int rmsnorm_bwd_max_width() { return repro_torch::kBwdMaxWidth; }
 
-// Blocks the backward kernel is launched with for `rows` rows of width D: as many
-// as fit on the current device at once, at most `rows`.  The caller allocates the
-// (blocks, D) f32 partials of dw.  Returns -1 for an unsupported dtype or width, or
-// when the device cannot be queried.
-extern "C" int rmsnorm_bwd_blocks(long long rows, int D, int dtype) {
+// The persistent grid of the backward kernel for rows of width D on the current device:
+// at most two blocks an SM.  A call launches min(rows, this) blocks and allocates the
+// (blocks, D) f32 partials of dw.  Call it on the device before the first rmsnorm_bwd
+// there at this width and dtype: it sets the kernel's shared-memory limit.  Returns -1
+// for an unsupported dtype or width, or when the device cannot be queried.
+extern "C" int rmsnorm_bwd_blocks(int D, int dtype) {
   using namespace repro_torch;
-  if (rows <= 0 || D <= 0) return -1;
-  if (dtype == kFloat32) return by_width<float, GridFn>(D, -1, rows);
-  if (dtype == kBFloat16) return by_width<__nv_bfloat16, GridFn>(D, -1, rows);
+  if (dtype == kFloat32) return by_width<float, GridFn>(D, -1);
+  if (dtype == kBFloat16) return by_width<__nv_bfloat16, GridFn>(D, -1);
   return -1;
 }
 
 // x, dy, dx: (rows, D) contiguous, dtype code `dtype`; w: (D,) f32; dw_part: (blocks, D)
-// f32, with blocks from rmsnorm_bwd_blocks.  Launches on `stream` and returns
-// cudaGetLastError() (0 when the launch was accepted).
+// f32 scratch, blocks at most rmsnorm_bwd_blocks and at most rows; dw: (D,) f32.  Two
+// grid launches on `stream`, the dw pass as the main kernel's programmatic dependent.
+// Returns the first CUDA error of the launches (0 when both were accepted).
 extern "C" int rmsnorm_bwd(const void* x, const void* w, const void* dy, void* dx,
-                           void* dw_part, long long rows, int D, int blocks, int dtype,
-                           float eps, void* stream) {
+                           void* dw_part, void* dw, long long rows, int D, int blocks,
+                           int dtype, float eps, void* stream) {
   using namespace repro_torch;
   if (rows <= 0 || D <= 0 || blocks <= 0 || blocks > rows)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int bad = static_cast<int>(cudaErrorInvalidValue);
   if (dtype == kFloat32)
-    return by_width<float, LaunchFn>(D, bad, x, w, dy, dx, dw_part, rows, D, blocks, eps, s);
+    return by_width<float, LaunchFn>(D, bad, x, w, dy, dx, dw_part, dw, rows, D, blocks, eps,
+                                     s);
   if (dtype == kBFloat16)
-    return by_width<__nv_bfloat16, LaunchFn>(D, bad, x, w, dy, dx, dw_part, rows, D, blocks,
+    return by_width<__nv_bfloat16, LaunchFn>(D, bad, x, w, dy, dx, dw_part, dw, rows, D, blocks,
                                              eps, s);
   return bad;
 }

@@ -140,9 +140,9 @@ def load() -> ctypes.CDLL:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.rmsnorm_fwd.argtypes = [p, p, p, ctypes.c_longlong, i, i, f, p]
         lib.rmsnorm_fwd.restype = i
-        lib.rmsnorm_bwd.argtypes = [p, p, p, p, p, ctypes.c_longlong, i, i, i, f, p]
+        lib.rmsnorm_bwd.argtypes = [p, p, p, p, p, p, ctypes.c_longlong, i, i, i, f, p]
         lib.rmsnorm_bwd.restype = i
-        lib.rmsnorm_bwd_blocks.argtypes = [ctypes.c_longlong, i, i]
+        lib.rmsnorm_bwd_blocks.argtypes = [i, i]
         lib.rmsnorm_bwd_blocks.restype = i
         lib.rmsnorm_bwd_max_width.argtypes = []
         lib.rmsnorm_bwd_max_width.restype = i

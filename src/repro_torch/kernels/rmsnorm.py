@@ -79,40 +79,58 @@ def check_bwd_args(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor) -> None:
         )
     if not dy.is_contiguous():
         raise ValueError("rmsnorm_bwd needs a contiguous dy")
-    if dy.device != x.device:
+    if dy.get_device() != x.get_device():
         raise ValueError(f"x is on {x.device} but dy on {dy.device}")
+
+
+#: the backward's persistent grid by (device, D, dtype code): its blocks for as many
+#: rows as there may be, found once (``rmsnorm_bwd_blocks``, which also sets the
+#: kernel's shared-memory limit on that device)
+_BWD_GRID: dict[tuple[int, int, int], int] = {}
 
 
 def rmsnorm_bwd(
     x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor, *, eps: float = 1e-6
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Launch the CUDA kernel.  Returns (dx in x's dtype, dw in w's dtype).
+    """Launch the CUDA kernels.  Returns (dx in x's dtype, dw in w's dtype).
 
-    The kernel writes one f32 row of dw partials per block; their sum over blocks
-    is taken here, as the reference sums its per-grid-step partials."""
+    One call is two grid launches: the main kernel writes dx and one f32 row of dw
+    partials per block, and the dw pass, its programmatic dependent, sums them in a
+    fixed order.  The launch path is K2's: the library from the module global, the
+    grid cached per (device, D, dtype) and cut to the rows, the stream as a raw
+    handle, no device context unless x lies off the current device.  The partials'
+    workspace comes from the caching allocator on each call."""
     check_bwd_args(x, w, dy)
     if not x.is_cuda:
         raise ValueError(f"rmsnorm_bwd launches a CUDA kernel; x lies on {x.device}")
+    device = x.get_device()
+    if device != torch.cuda.current_device():
+        with torch.cuda.device(device):
+            return rmsnorm_bwd(x, w, dy, eps=eps)
     D = x.shape[-1]
     dx = torch.empty_like(x)
     rows = x.numel() // D if D else 0
     if rows == 0:
         return dx, torch.zeros_like(w)
-    lib = build.load()
-    if D > lib.rmsnorm_bwd_max_width():
-        raise ValueError(f"rmsnorm_bwd takes rows of at most {lib.rmsnorm_bwd_max_width()}")
-    code = build.DTYPE_CODES[_DTYPES[x.dtype]]
-    with torch.cuda.device(x.device):
-        blocks = lib.rmsnorm_bwd_blocks(rows, D, code)
-        if blocks <= 0:
+    code = _CODES[x.dtype]
+    grid = _BWD_GRID.get((device, D, code))
+    if grid is None:
+        widest = _lib().rmsnorm_bwd_max_width()
+        if D > widest:
+            raise ValueError(f"rmsnorm_bwd takes rows of at most {widest}")
+        grid = _lib().rmsnorm_bwd_blocks(D, code)
+        if grid <= 0:
             raise RuntimeError(f"rmsnorm_bwd found no launch configuration for D={D}")
-        dw_part = torch.empty((blocks, D), dtype=torch.float32, device=x.device)
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.rmsnorm_bwd(
-            x.data_ptr(), w.data_ptr(), dy.data_ptr(), dx.data_ptr(), dw_part.data_ptr(),
-            rows, D, blocks, code, float(eps), stream,
-        )
+        _BWD_GRID[(device, D, code)] = grid
+    blocks = min(rows, grid)
+    dw_part = w.new_empty((blocks, D))
+    dw = torch.empty_like(w)
+    err = _lib().rmsnorm_bwd(
+        x.data_ptr(), w.data_ptr(), dy.data_ptr(), dx.data_ptr(), dw_part.data_ptr(),
+        dw.data_ptr(), rows, D, blocks, code, float(eps),
+        torch._C._cuda_getCurrentRawStream(device),
+    )
     if err != 0:
         raise RuntimeError(f"rmsnorm_bwd launch failed with CUDA error {err}")
     build.LAUNCHES["rmsnorm_bwd"] += 1
-    return dx, dw_part.sum(dim=0).to(w.dtype)
+    return dx, dw

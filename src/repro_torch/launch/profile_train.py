@@ -42,7 +42,7 @@ TOP = 16  # kernels listed
 KINDS = (  # (kind, substrings of the kernel's name), first match wins
     ("K4 flash_attention_fwd", ("fa_fwd_tc_kernel", "fa_fwd_simt_kernel")),
     ("K2 rmsnorm_fwd", ("rmsnorm_fwd_kernel",)),
-    ("K3 rmsnorm_bwd", ("rmsnorm_bwd_kernel",)),
+    ("K3 rmsnorm_bwd", ("rmsnorm_bwd_kernel", "rmsnorm_bwd_dw_kernel")),
     ("GEMM", ("gemm", "nvjet", "cutlass", "xmma", "sm90_")),
 )
 

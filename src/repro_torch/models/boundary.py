@@ -19,8 +19,8 @@ The other places where DTensor has no sharding strategy for the model's ops,
 or where it would pick a costly one, are written here too, as explicit
 redistribution and local compute: the embedding lookup on a vocab-sharded
 table, the f32-output logits product, the cross-entropy on vocab-sharded logits,
-the MoE's index-based dispatch and combine, the Mamba conv, and the decode caches'
-writes.
+the MoE's index-based dispatch and combine, the Mamba conv, the decode caches'
+writes, and what reads them: the cached decode's attention and SSM step.
 """
 
 from __future__ import annotations
@@ -31,9 +31,12 @@ import torch
 
 from repro_torch import kernels, parallel
 
+from .common import softcap
+
 __all__ = [
-    "cache_put", "embedding", "flash_attention", "is_dtensor", "local_call", "matmul_f32",
-    "moe", "nll", "rmsnorm", "rows", "ssd_scan",
+    "cache_put", "decode_attention", "embedding", "flash_attention", "is_dtensor",
+    "local_call", "matmul_f32", "moe", "nll", "reduce_over", "rmsnorm", "rows", "ssd_scan",
+    "ssd_step",
 ]
 
 
@@ -86,6 +89,16 @@ def _grad_pl(own: Sequence, others: Sequence[Sequence]) -> tuple:
         sharded = any(isinstance(o[m], Shard) for o in others)
         out.append(Partial() if isinstance(p, Replicate) and sharded else p)
     return tuple(out)
+
+
+def reduce_over(t, mesh, over: Sequence[bool], op: str = "sum"):
+    """``t``, a local partial over the mesh dims flagged in ``over``, reduced over them:
+    an all-reduce on each (``parallel.redistribute`` of a ``Partial``), differentiable
+    through DTensor."""
+    DTensor, Partial, Replicate, _ = _classes()
+    pl = tuple(Partial(op) if o else Replicate() for o in over)
+    return parallel.redistribute(DTensor.from_local(t, mesh, pl, run_check=False),
+                                 tuple(Replicate() for _ in over)).to_local()
 
 
 class _SumGrad(torch.autograd.Function):
@@ -145,17 +158,41 @@ def rmsnorm(x, w, *, eps: float, impl: str | None = None):
                       (xin, win), (xin, _grad_pl(win, [xin])), xin)
 
 
+def _kv_cut(mesh, qin: Sequence, kin: Sequence, H: int, KVH: int) -> Callable:
+    """A function of local K and V (kv heads on dim 1, placed by ``kin``) that keeps
+    the kv heads this rank's q heads (placed by ``qin``) map to *globally* (``h // (H
+    / KVH)``), not to ``h_local // (H_local / KVH)``: where the q heads are sharded and
+    the kv heads replicated (kv heads that do not divide the model axis).  A
+    contiguous block of kv heads where each serves the same number of local q heads,
+    else one kv head per q head."""
+    group = H // KVH
+    h0, hl = _offset(mesh, qin, 4, 1, H)
+    k0, kl = _offset(mesh, kin, 4, 1, KVH)
+    idx = [(h0 + j) // group - k0 for j in range(hl)]  # each local q head's local kv head
+    lo, hi = idx[0], idx[-1] + 1
+    uniform = hl % (hi - lo) == 0 and idx == [lo + j // (hl // (hi - lo)) for j in range(hl)]
+
+    def cut(k, v):
+        if (lo, hi) == (0, kl) and uniform:
+            return k, v
+        if uniform:  # a contiguous block of kv heads, each serving hl/(hi-lo) q heads
+            k, v = k[:, lo:hi], v[:, lo:hi]
+        else:  # q heads that straddle kv heads: one kv head per q head
+            sel = torch.tensor(idx, device=k.device)
+            k, v = k.index_select(1, sel), v.index_select(1, sel)
+        return k.contiguous(), v.contiguous()
+
+    return cut
+
+
 def flash_attention(q, k, v, *, causal: bool = True, window: int | None = None,
                     impl: str | None = None):
     """K4 on local batch rows and heads.  Sequence and head dims are gathered where
-    sharded.  Where the q heads are sharded and the kv heads replicated (kv heads
-    that do not divide the model axis), K and V are cut to the kv heads this
-    rank's q heads map to globally (``h // (H / KVH)``), not to
-    ``h_local // (H_local / KVH)``."""
+    sharded.  Where the q heads are sharded and the kv heads replicated, K and V are
+    cut to the kv heads this rank's q heads map to (:func:`_kv_cut`)."""
     if not is_dtensor(q, k, v):
         return kernels.flash_attention(q, k, v, causal=causal, window=window, impl=impl)
     _, _, Replicate, Shard = _classes()
-    mesh = q.device_mesh
     qin = _keep(q, (0, 1))
     kin = []
     for m, p in enumerate(qin):  # batch as q's; heads sharded only where q's are
@@ -167,23 +204,11 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int | None = None,
         else:
             kin.append(Replicate())
     kin = tuple(kin)
-    H, KVH = q.shape[1], k.shape[1]
-    group = H // KVH
-    h0, hl = _offset(mesh, qin, 4, 1, H)
-    k0, kl = _offset(mesh, kin, 4, 1, KVH)
-    idx = [(h0 + j) // group - k0 for j in range(hl)]  # each local q head's local kv head
-    lo, hi = idx[0], idx[-1] + 1
-    uniform = hl % (hi - lo) == 0 and idx == [lo + j // (hl // (hi - lo)) for j in range(hl)]
+    cut = _kv_cut(q.device_mesh, qin, kin, q.shape[1], k.shape[1])
 
-    def run(ql, kl_, vl):
-        if (lo, hi) != (0, kl) or not uniform:
-            if uniform:  # a contiguous block of kv heads, each serving hl/(hi-lo) q heads
-                kl_, vl = kl_[:, lo:hi], vl[:, lo:hi]
-            else:  # q heads that straddle kv heads: one kv head per q head
-                sel = torch.tensor(idx, device=kl_.device)
-                kl_, vl = kl_.index_select(1, sel), vl.index_select(1, sel)
-            kl_, vl = kl_.contiguous(), vl.contiguous()
-        return kernels.flash_attention(ql, kl_, vl, causal=causal, window=window, impl=impl)
+    def run(ql, kl, vl):
+        return kernels.flash_attention(ql, *cut(kl, vl), causal=causal, window=window,
+                                       impl=impl)
 
     kg = _grad_pl(kin, [qin])
     return local_call(run, (q, k, v), (qin, kin, kin), (qin, kg, kg), qin)
@@ -214,6 +239,110 @@ def ssd_scan(x, dt, A, B, C, *, return_final_state: bool = False, impl: str | No
     return local_call(run, (x, dt, A, B, C), (xin, dtin, ain, bin_, bin_),
                       (xin, dtin, _grad_pl(ain, [xin]), bg, bg),
                       (xin, sin) if return_final_state else xin)
+
+
+def _scores(q, k, scale: float, cap: float | None):
+    """q (B, H, 1, hd) against k (B, KVH, T, hd) on a grouped-head view, in f32:
+    (B, KVH, H/KVH, 1, T), scaled and soft-capped."""
+    B, H, _, hd = q.shape
+    qg = q.to(torch.float32).reshape(B, k.shape[1], H // k.shape[1], 1, hd)
+    s = torch.einsum("bkgqd,bksd->bkgqs", qg, k.to(torch.float32)) * scale
+    return softcap(s, cap)
+
+
+def _attend(q, k, v, valid, scale: float, cap: float | None):
+    """One token's attention over the slots of k and v where ``valid`` (T,) holds
+    (every slot where None): plain f32 math, out in q's dtype."""
+    B, H, _, hd = q.shape
+    s = _scores(q, k, scale, cap)
+    if valid is not None:
+        s = torch.where(valid, s, torch.full_like(s, -1e30))
+    pattn = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgqs,bksd->bkgqd", pattn, v.to(torch.float32))
+    return o.reshape(B, H, 1, hd).to(q.dtype)
+
+
+def decode_attention(q, k, v, valid, *, scale: float, cap: float | None = None):
+    """The cached decode's attention: q (B, H, 1, hd) over a cache's k, v (B, KVH, T,
+    hd), the slots where ``valid`` (T,) holds (all where None), softmax of the scaled,
+    soft-capped scores in f32; out (B, H, 1, hd) in q's dtype.
+
+    Under a mesh each rank takes its batch rows and q heads, with K and V cut to the
+    kv heads its q heads map to globally (:func:`_kv_cut`).  Where the cache is
+    sharded on its slots (a long context's ``kv_seq``), each rank attends over its
+    own block of slots with q whole on that axis: its row max, its sum of ``exp`` and
+    its weighted V are combined across the axis (a max all-reduce, then one sum
+    all-reduce of the rescaled sums and outputs), and the rank keeps its own q heads.
+    The cache is never gathered.  The output has q's placements."""
+    if not is_dtensor(q, k, v):
+        return _attend(q, k, v, valid, scale, cap)
+    _, _, Replicate, Shard = _classes()
+    mesh = q.device_mesh
+    qpl = _keep(q, (0, 1))
+    qin, kin = [], []
+    for m, p in enumerate(qpl):  # batch as q's; the cache's slots kept where sharded
+        pk = k.placements[m]
+        if _shard_dim(p, 4) == 0:
+            qin.append(p)
+            kin.append(Shard(0))
+        elif _shard_dim(pk, 4) == 2:
+            qin.append(Replicate())
+            kin.append(Shard(2))
+        elif _shard_dim(p, 4) == 1 and _shard_dim(pk, 4) == 1:
+            qin.append(p)
+            kin.append(Shard(1))
+        else:
+            qin.append(p)
+            kin.append(Replicate())
+    qin, kin = tuple(qin), tuple(kin)
+    H = q.shape[1]
+    cut = _kv_cut(mesh, qin, kin, H, k.shape[1])
+    slots = _sharded(kin, 4, 2)
+    t0, tl = _offset(mesh, kin, 4, 2, k.shape[2])
+    h0, hl = _offset(mesh, qpl, 4, 1, H)  # this rank's q heads
+    g0, _ = _offset(mesh, qin, 4, 1, H)  # the q heads it attends with
+
+    def run(ql, kl, vl):
+        kl, vl = cut(kl, vl)
+        vis = None if valid is None else valid[t0:t0 + tl]
+        if not any(slots):
+            return _attend(ql, kl, vl, vis, scale, cap)
+        B, Hq, _, hd = ql.shape
+        s = _scores(ql, kl, scale, cap)
+        if vis is not None:
+            s = torch.where(vis, s, torch.full_like(s, -1e30))
+        m = s.amax(dim=-1, keepdim=True)
+        e = torch.exp(s - m)
+        o = torch.einsum("bkgqs,bksd->bkgqd", e, vl.to(torch.float32))
+        # a block with no visible slot has m = -1e30: its weight exp(m - max) is 0
+        mx = reduce_over(m, mesh, slots, "max")
+        c = torch.exp(m - mx)
+        ol = reduce_over(torch.cat([o * c, e.sum(-1, keepdim=True) * c], dim=-1), mesh, slots)
+        o = (ol[..., :-1] / ol[..., -1:]).reshape(B, Hq, 1, hd)
+        return o[:, h0 - g0:h0 - g0 + hl].to(ql.dtype)
+
+    return local_call(run, (q, k, v), (qin, kin, kin), (None, None, None), qpl)
+
+
+def ssd_step(h, x, dt, A, B, C):
+    """One decode step of the SSD recurrence (``kernels.ssd_step``) on local batch rows
+    and SSM heads: the state h (B, NH, N, P) keeps its batch and head shards; x (B, NH,
+    P), dt (B, NH) and A (NH,) follow them; B and C (B, 1, N) follow its batch only
+    (replicated over the heads), as :func:`ssd_scan` places them.  Returns (new state,
+    y (B, NH, P)) at h's and x's placements."""
+    if not is_dtensor(h, x, dt, A, B, C):
+        return kernels.ssd_step(h, x, dt, A, B, C)
+    _, _, Replicate, Shard = _classes()
+    hin = _keep(h, (0, 1))
+    xin, ain, bin_ = [], [], []
+    for p in hin:
+        d = _shard_dim(p, 4)
+        xin.append(Shard(d) if d is not None else Replicate())
+        ain.append(Shard(0) if d == 1 else Replicate())
+        bin_.append(Shard(0) if d == 0 else Replicate())
+    xin, ain, bin_ = map(tuple, (xin, ain, bin_))
+    return local_call(kernels.ssd_step, (h, x, dt, A, B, C), (hin, xin, xin, ain, bin_, bin_),
+                      (None,) * 6, (hin, xin))
 
 
 # ===========================================================================
@@ -287,7 +416,7 @@ def nll(logits, labels):
         logz = torch.logsumexp(logits, dim=-1)
         gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
         return torch.mean(logz - gold)
-    DTensor, Partial, Replicate, Shard = _classes()
+    _, Partial, Replicate, Shard = _classes()
     mesh = logits.device_mesh
     lin = _keep(logits, (0, 2))
     vocab = [v and mesh.size(m) > 1 for m, v in enumerate(_sharded(lin, 3, 2))]
@@ -298,12 +427,6 @@ def nll(logits, labels):
     for m, r in enumerate(rows):
         share /= mesh.size(m) if r else 1
 
-    def over_vocab(t, op: str = "sum"):
-        """``t`` (a local partial over the vocab axis) reduced over it."""
-        pl = tuple(Partial(op) if v else Replicate() for v in vocab)
-        return parallel.redistribute(DTensor.from_local(t, mesh, pl, run_check=False),
-                                     tuple(Replicate() for _ in vocab)).to_local()
-
     def run(lg, lab):
         lab = lab.long()
         if not any(vocab):
@@ -311,12 +434,12 @@ def nll(logits, labels):
             gold = torch.gather(lg, -1, lab[..., None])[..., 0]
         else:
             with torch.no_grad():
-                m = over_vocab(lg.amax(dim=-1), "max")
-            logz = torch.log(over_vocab(torch.exp(lg - m[..., None]).sum(-1))) + m
+                m = reduce_over(lg.amax(dim=-1), mesh, vocab, "max")
+            logz = torch.log(reduce_over(torch.exp(lg - m[..., None]).sum(-1), mesh, vocab)) + m
             i = lab - v0
             inside = (i >= 0) & (i < vl)
             g = torch.gather(lg, -1, torch.where(inside, i, 0)[..., None])[..., 0]
-            gold = over_vocab(g * inside.to(g.dtype))
+            gold = reduce_over(g * inside.to(g.dtype), mesh, vocab)
         mean = torch.mean(logz - gold)
         return mean * share if share != 1.0 else mean
 

@@ -24,10 +24,9 @@ from typing import Any
 import torch
 import torch.nn.functional as F
 
-from repro_torch import kernels
 from repro_torch.parallel import constrain, constrain_as, zeros
 from . import boundary
-from .common import ModelConfig, apply_rope, dense_init, softcap
+from .common import ModelConfig, apply_rope, dense_init
 
 Params = dict[str, Any]
 
@@ -145,8 +144,8 @@ def attn_decode(
 
     Writes the token's K/V into ``cache`` in place (slot ``pos % size`` for a
     local ring) and returns ``(y, cache)``.  The attention itself is plain f32
-    math on a grouped-head view, as in the reference: no kernel."""
-    B = x_t.shape[0]
+    math on a grouped-head view, as in the reference: no kernel
+    (``boundary.decode_attention``, on local shards under a mesh)."""
     size = cache["k"].shape[2]
     positions = torch.full((1,), pos, device=x_t.device)  # a fill, not a host-to-device copy
     q = apply_rope(_proj(cfg, x_t, p["wq"], "heads"), positions, cfg.rope_theta)
@@ -165,14 +164,8 @@ def attn_decode(
     p_j = pos - torch.remainder(pos - j, size) if kind == "local" else j
     valid = (p_j >= 0) & (p_j <= pos)
 
-    group = cfg.n_heads // cfg.n_kv_heads
-    qg = q.to(torch.float32).reshape(B, cfg.n_kv_heads, group, 1, cfg.hd)
-    s = torch.einsum("bkgqd,bksd->bkgqs", qg, cache["k"].to(torch.float32)) * (cfg.hd**-0.5)
-    s = softcap(s, cfg.attn_logit_softcap)
-    s = torch.where(valid, s, torch.full_like(s, -1e30))
-    pattn = torch.softmax(s, dim=-1)
-    o = torch.einsum("bkgqs,bksd->bkgqd", pattn, cache["v"].to(torch.float32))
-    o = o.reshape(B, cfg.n_heads, 1, cfg.hd).to(cfg.cdtype)
+    o = boundary.decode_attention(q, cache["k"], cache["v"], valid, scale=cfg.hd**-0.5,
+                                  cap=cfg.attn_logit_softcap)
     return _out(cfg, p, o), cache
 
 
@@ -196,15 +189,10 @@ def cross_attn_apply(
 
 def cross_attn_decode(cfg: ModelConfig, p: Params, x_t: torch.Tensor, cache: Params):
     """One token's cross-attention over the projected K/V: plain f32 math on a
-    grouped-head view, with no mask and no softcap, as in the reference."""
-    B = x_t.shape[0]
-    group = cfg.n_heads // cfg.n_kv_heads
+    grouped-head view (``boundary.decode_attention``), with no mask and no softcap, as
+    in the reference."""
     q = _proj(cfg, x_t, p["wq"], "heads")
-    qg = q.to(torch.float32).reshape(B, cfg.n_kv_heads, group, 1, cfg.hd)
-    s = torch.einsum("bkgqd,bksd->bkgqs", qg, cache["k"].to(torch.float32)) * (cfg.hd**-0.5)
-    pattn = torch.softmax(s, dim=-1)
-    o = torch.einsum("bkgqs,bksd->bkgqd", pattn, cache["v"].to(torch.float32))
-    o = o.reshape(B, cfg.n_heads, 1, cfg.hd).to(cfg.cdtype)
+    o = boundary.decode_attention(q, cache["k"], cache["v"], None, scale=cfg.hd**-0.5)
     return _out(cfg, p, o)
 
 
@@ -406,6 +394,11 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return sum(xp[:, i:i + S, :] * w[i][None, None, :] for i in range(K))
 
 
+def _conv_window(window: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The causal conv at the last of K rows: window (B, K, C), w (K, C) → (B, 1, C)."""
+    return torch.einsum("bkc,kc->bc", window, w)[:, None, :]
+
+
 def _mamba_forward(cfg: ModelConfig, p: Params, x: torch.Tensor, return_state: bool,
                    impl: str | None):
     """The Mamba-2 block on a full sequence: (y, final SSM state or None, the
@@ -476,14 +469,13 @@ def mamba_decode(
     z, xc_t, dtr = _mamba_split(cfg, zxbcdt)  # xc_t: (B, 1, conv_dim)
 
     window = torch.cat([cache["conv"], xc_t], dim=1)  # (B, K, conv_dim)
-    xc = torch.einsum("bkc,kc->bc", window, p["conv_w"].to(cfg.cdtype))[:, None, :]
-    xc = F.silu(xc)
+    xc = F.silu(boundary.rows(_conv_window, window, p["conv_w"].to(cfg.cdtype)))
 
     xs, Bm, Cm = xc[..., :DI], xc[..., DI:DI + N], xc[..., DI + N:]
     dt = F.softplus(dtr[:, 0].to(torch.float32) + p["dt_bias"])  # (B, NH)
     A = -torch.exp(p["A_log"])
     xh = xs.reshape(B, NH, P)
-    new_ssm, y = kernels.ssd_step(cache["ssm"], xh, dt, A, Bm[:, 0, None, :], Cm[:, 0, None, :])
+    new_ssm, y = boundary.ssd_step(cache["ssm"], xh, dt, A, Bm[:, 0, None, :], Cm[:, 0, None, :])
     y = y + p["D_skip"].to(cfg.cdtype)[None, :, None] * xh
     y = y.to(cfg.cdtype).reshape(B, 1, DI)
     y = y * F.silu(z)

@@ -28,12 +28,12 @@ MESHES = {"single": ((16, 16), ("data", "model")),
           "multi": ((2, 16, 16), ("pod", "data", "model"))}
 
 
-def _dryrun(args: list[str], tmp_path) -> dict:
+def _dryrun(args: list[str], tmp_path, reduced: bool = True) -> dict:
     env = dict(os.environ, PYTHONPATH=SRC + os.pathsep + os.environ.get("PYTHONPATH", ""),
                OMP_NUM_THREADS="1")
-    res = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun", "--reduced",
-                          "--out", str(tmp_path), *args], env=env, capture_output=True,
-                         text=True, timeout=240)
+    res = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun",
+                          *(["--reduced"] if reduced else []), "--out", str(tmp_path), *args],
+                         env=env, capture_output=True, text=True, timeout=240)
     assert res.returncode == 0, res.stdout[-3000:] + res.stderr[-3000:]
     recs = [json.loads(line.split(" ", 1)[1]) for line in res.stdout.splitlines()
             if line.startswith("DRYRUN ")]
@@ -59,9 +59,9 @@ def _spec_bytes(tree, specs, sizes: dict) -> int:
     return total
 
 
-def _reference(arch: str, cell: str, mesh: str) -> tuple[float, int]:
-    """(parameter count, argument bytes per rank) of a reduced cell by the reference's
-    specs."""
+def _reference(arch: str, cell: str, mesh: str, reduced: bool = True) -> tuple[float, int]:
+    """(parameter count, argument bytes per rank) of a cell (reduced by default) by the
+    reference's specs."""
     import repro.configs as RC
     import repro.distributed as RD
     import repro.distributed.sharding as RS
@@ -69,7 +69,7 @@ def _reference(arch: str, cell: str, mesh: str) -> tuple[float, int]:
     import repro.optim as RO
     import repro.parallel as RPar
 
-    cfg = RC.get_config(arch, reduced=True)
+    cfg = RC.get_config(arch, reduced=reduced)
     sizes, names = MESHES[mesh]
     ctx = RPar.MeshContext(RPar.abstract_mesh(sizes, names), RS.make_rules(cfg))
     axes = dict(zip(names, sizes))
@@ -109,6 +109,40 @@ def test_dryrun_cell_matches_the_reference_specs(arch, cell, mesh, tmp_path):
     assert sum(rec["collectives"].values()) > 0, rec["collectives"]
     if cell == "train_4k":
         assert rec["optimizer"] == "adamw"
+
+
+@pytest.mark.parametrize("arch,cell", [
+    ("internlm2-1.8b", "decode_32k"),
+    ("whisper-medium", "decode_32k"),
+    ("jamba-v0.1-52b", "long_500k"),
+], ids=["internlm2-decode_32k", "whisper-decode_32k", "jamba-long_500k"])
+def test_dryrun_of_a_production_decode_cell(arch, cell, tmp_path):
+    """Production decode cells at full width on 16×16, which the cached decode on
+    DTensors failed before it ran on local shards: internlm2's 8 kv heads under 16
+    sharded q heads (a 32768-slot cache sharded on its slots), whisper's self- and
+    cross-attention decode, and jamba's 524288-slot cache (sequence-sharded, never
+    gathered), GQA and SSM step.  The record holds a peak and collective bytes, and its
+    argument bytes per rank are what the reference's specs imply."""
+    rec = _dryrun(["--arch", arch, "--cell", cell, "--mesh", "single"], tmp_path,
+                  reduced=False)
+    count, nbytes = _reference(arch, cell, "single", reduced=False)
+    mem = rec["memory"]
+    assert rec["param_count"] == count
+    assert rec["argument_bytes_per_rank"] == mem["argument_size_bytes"] == nbytes
+    assert mem["peak_size_bytes"] > nbytes and mem["temp_size_bytes"] > 0
+    assert set(rec["collective_bytes"]) == set(KINDS)
+    assert rec["collective_bytes"]["all-reduce"] > 0
+    # each rank attends over its own block of a long cache's slots: the self-attention
+    # caches (every 4-d cache of seq_len slots) are never gathered, and everything the
+    # step gathers (the FSDP-stored parameters) is less than they hold
+    from repro_torch import tree as T
+    from repro_torch.configs import SHAPES, cache_specs, get_config
+
+    caches = cache_specs(get_config(arch), SHAPES[cell])
+    big = sum(t.numel() * t.element_size() for t in T.leaves(caches)
+              if t.ndim == 4 and t.shape[-2] == SHAPES[cell].seq_len)
+    assert big > 0 and rec["collective_bytes"]["all-gather"] < big, (
+        rec["collective_bytes"], big)
 
 
 def test_probe_counts_the_unsharded_step(tmp_path):

@@ -9,7 +9,9 @@ Without a CUDA device every test skips.  The shapes are the cases of
 ragged edges the TPU kernel's tiling could not take, and the rmsnorm shapes of
 the gemma3-1b serving path and the internlm2-1.8b training path (K2 also at a width
 that is no multiple of its 16-byte vector, a single row, a row wider than its
-warp-per-row kernel holds, and rows off a 16-byte boundary).  K4's bf16 kernel (the
+warp-per-row kernel holds, and rows off a 16-byte boundary; K3 likewise, at the widest
+rows of 8192, with fewer rows than its persistent grid has blocks, and with two calls
+bitwise equal, its dw summed in a fixed order).  K4's bf16 kernel (the
 tensor cores) is also held at the main paths' geometries and ragged edges
 (``TC_CASES``: causal, windowed, and the non-causal Sq ≠ Skv calls of whisper-medium
 at head_dim 64 and of llama-3.2-vision-11b) against the twin of its rounding points,
@@ -273,9 +275,14 @@ def test_flash_attention_function_gradients_bf16(cuda, D, window):
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize(
-    "shape", [(2, 256, 64), (120, 96), (8, 1024, 2048), (4, 1024, 1152), (3, 5000), (1, 1)]
+    "shape", [(2, 256, 64), (120, 96), (8, 1024, 2048), (4, 1024, 1152), (3, 5000), (1, 1),
+              (8, 256, 512), (4, 24, 64), (16, 8192), (100, 2048)]
 )
 def test_rmsnorm_bwd_kernel_matches_plain(cuda, dtype, shape):
+    """K3 at the training widths (2048 internlm2, 512 train_e2e, 64 serve_batch's
+    reduced archs), the widest row (8192: 16 warps a row in either dtype), a width
+    that is no multiple of the vector (5000, 96), a single value, and fewer rows than
+    the persistent grid has blocks (100 rows of 2048: a block a row)."""
     rs = np.random.RandomState(1)
     x = torch.from_numpy(rs.randn(*shape).astype(np.float32)).to(cuda, DTYPES[dtype])
     dy = torch.from_numpy(rs.randn(*shape).astype(np.float32)).to(cuda, DTYPES[dtype])
@@ -288,6 +295,39 @@ def test_rmsnorm_bwd_kernel_matches_plain(cuda, dtype, shape):
     tol = BWD_TOL if dtype == "float32" else TOL["bfloat16"]
     np.testing.assert_allclose(f32(dx), f32(want_dx), **tol)
     assert_dw_close(dw, want_dw, x, w, dy)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rmsnorm_bwd_kernel_takes_unaligned_rows(cuda, dtype):
+    """x and dy that start off a 16-byte boundary (slices of larger buffers) take the
+    scalar loads and stores, as K2's do."""
+    rs = np.random.RandomState(4)
+    n = 16 * 1152
+    flat = torch.from_numpy(rs.randn(2 * n + 2).astype(np.float32)).to(cuda, DTYPES[dtype])
+    x, dy = flat[1:n + 1].view(16, 1152), flat[n + 2:].view(16, 1152)
+    assert x.data_ptr() % 16 != 0 and dy.data_ptr() % 16 != 0
+    w = torch.from_numpy((1.0 + 0.1 * rs.randn(1152)).astype(np.float32)).to(cuda)
+    dx, dw = rmsnorm_bwd(x, w, dy)
+    want_dx, want_dw = tref.rmsnorm_bwd_ref(x, w, dy)
+    tol = BWD_TOL if dtype == "float32" else TOL["bfloat16"]
+    np.testing.assert_allclose(f32(dx), f32(want_dx), **tol)
+    assert_dw_close(dw, want_dw, x, w, dy)
+
+
+@pytest.mark.parametrize("dtype,shape", [("float32", (8, 256, 512)),
+                                         ("bfloat16", (8, 1024, 2048)),
+                                         ("float32", (3, 5000))])
+def test_rmsnorm_bwd_kernel_is_deterministic(cuda, dtype, shape):
+    """dw is summed in a fixed order with no atomics: two calls on the same inputs give
+    bitwise-equal dx and dw."""
+    rs = np.random.RandomState(5)
+    x = torch.from_numpy(rs.randn(*shape).astype(np.float32)).to(cuda, DTYPES[dtype])
+    dy = torch.from_numpy(rs.randn(*shape).astype(np.float32)).to(cuda, DTYPES[dtype])
+    w = torch.from_numpy((1.0 + 0.1 * rs.randn(shape[-1])).astype(np.float32)).to(cuda)
+    first = rmsnorm_bwd(x, w, dy)
+    for _ in range(2):
+        again = rmsnorm_bwd(x, w, dy)
+        assert torch.equal(again[0], first[0]) and torch.equal(again[1], first[1])
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

@@ -22,6 +22,9 @@ own timeout, as in ``tests/test_torch_spmd_exec.py``; the ranks import
 * 1×4: internlm2's 2 kv heads do not divide the model axis, so they are
   replicated while the 4 q heads are sharded (K and V cut to each rank's
   groups);
+* the placed decode on 1×4 and 1×2: internlm2, whisper and jamba, and global caches
+  sequence-sharded at 8200 slots, against the single-device greedy tokens and
+  logits;
 * what reaches ``kernels.*``: plain local tensors, never a DTensor.
 
 Then ``launch.train --compiler torch --data-mesh 2`` under
@@ -99,36 +102,48 @@ _RANK = textwrap.dedent(
         assert int(s1["step"].full_tensor()) == steps
         print("OK train", arch, opt_name, flush=True)
 
-    def serve(arch, cfg=None, gen=4):
+    def serve(arch, cfg=None, gen=4, max_len=None):
+        # prefill and `gen` greedy decode steps, placed and on one device: the same
+        # greedy tokens, logits and caches; `max_len` past 8192 makes the global
+        # self-attention caches sequence-sharded (kv_seq) where the kv heads leave the
+        # model axis free
         cfg = cfg or get_config(arch, reduced=True)
         params = init_params(cfg, seed=0, device="cpu")
         B, S = 4, 12
         tokens = ints(cfg.vocab, (B, S))
-        pre, dec = make_serve_fns(cfg, S + gen)
+        extras = None
+        if cfg.enc_dec:  # whisper: 8 stub encoder frames
+            extras = {{"enc_frames": torch.from_numpy(
+                rng.standard_normal((B, 8, cfg.d_model)).astype(np.float32)).to(cfg.cdtype)}}
+        max_len = max_len or S + gen
+        pre, dec = make_serve_fns(cfg, max_len)
         with torch.no_grad():
-            lg, c0 = pre(params, tokens)
+            lg, c0 = pre(params, tokens, extras)
             want = [lg]
             for i in range(gen):
                 lg, c0 = dec(params, c0, want[-1].argmax(-1).to(torch.int32), S + i)
                 want.append(lg)
         ctx = MeshContext(mesh, make_rules(cfg))
-        fp, _ = jit_prefill(cfg, ctx, S + gen, params, {{"tokens": tokens}})
-        lg, c1 = fp(params, tokens)
-        fd, _, c_sh = jit_decode_step(cfg, ctx, S + gen, params, c1, B)
+        fp, _ = jit_prefill(cfg, ctx, max_len, params, {{"tokens": tokens, **(extras or {{}})}})
+        lg, c1 = fp(params, tokens, extras)
+        fd, _, c_sh = jit_decode_step(cfg, ctx, max_len, params, c1, B)
         got = [lg]
         for i in range(gen):
             lg, c1 = fd(params, c1, got[-1].argmax(-1).to(torch.int32), S + i)
             got.append(lg)
         for i, (a, b) in enumerate(zip(want, got, strict=True)):
             assert not hasattr(b, "placements")
+            assert torch.equal(b.argmax(-1), a.argmax(-1)), f"{{arch}} greedy tokens of step {{i}}"
             np.testing.assert_allclose(b.numpy(), a.numpy(), rtol=2e-4, atol=2e-5,
                                        err_msg=f"{{arch}} logits of step {{i}}")
+        seq = sum(getattr(p, "dim", None) == 2
+                  for c in T.leaves(c_sh, is_leaf=lambda x: isinstance(x, tuple)) for p in c)
         for a, b, pl in zip(T.leaves(c0), T.leaves(c1), T.leaves(
                 c_sh, is_leaf=lambda x: isinstance(x, tuple)), strict=True):
             assert tuple(b.placements) == tuple(pl)
             np.testing.assert_allclose(b.full_tensor().numpy(), a.numpy(), rtol=2e-4,
                                        atol=2e-5, err_msg=f"{{arch}} caches")
-        print("OK serve", arch, flush=True)
+        print("OK serve", arch, max_len, "seq-sharded caches", seq, flush=True)
 
     def moe(experts):
         cfg = dataclasses.replace(get_config("grok-1-314b", reduced=True), num_experts=experts)
@@ -231,6 +246,14 @@ _RANK = textwrap.dedent(
         elif case == "moe":
             moe(4)
             moe(3)
+        elif case == "decode_gqa":
+            serve("internlm2-1.8b")
+        elif case == "decode_whisper":
+            serve("whisper-medium")
+        elif case == "decode_jamba":
+            serve("jamba-v0.1-52b")
+        elif case == "decode_long":
+            serve("internlm2-1.8b" if model == 4 else "gemma3-1b", max_len=8200)
         elif case == "kernels":
             record_kernels()
         elif case == "gather":
@@ -274,6 +297,32 @@ def test_replicated_kv_heads_with_sharded_q_heads(tmp_path):
     not divide 4) replicated; each rank's q head must meet kv head ``h // 2``."""
     outs = _mesh_run(tmp_path, 1, 4, ["train_adamw", "serve_gemma"])
     assert all("OK train internlm2-1.8b adamw" in out for out in outs)
+
+
+@pytest.mark.parametrize("model,cases", [
+    (4, ["decode_gqa", "decode_long"]),
+    (2, ["decode_gqa", "decode_whisper", "decode_jamba", "decode_long"]),
+], ids=["1x4", "1x2"])
+def test_placed_decode_matches_the_single_device_port(model, cases, tmp_path):
+    """The cached decode on local shards (``boundary.decode_attention``, ``ssd_step``):
+    prefill and four greedy steps give the single-device port's greedy tokens, and
+    its logits and caches within rtol 2e-4, atol 2e-5 (f32).  Reduced internlm2: 2 kv
+    heads replicated under 4 sharded q heads on 1×4, sharded with them on 1×2;
+    whisper's self- and cross-attention decode; jamba's attention, MoE and SSM step.
+    With 8200 slots the global caches are sequence-sharded: internlm2's on 1×4, gemma3's
+    (1 kv head) on 1×2, each rank attending over its own block of slots."""
+    outs = _mesh_run(tmp_path, 1, model, cases)
+    want = {"decode_gqa": "OK serve internlm2-1.8b 16 ",
+            "decode_whisper": "OK serve whisper-medium 16 ",
+            "decode_jamba": "OK serve jamba-v0.1-52b 16 ",
+            "decode_long": ("OK serve internlm2-1.8b 8200 seq-sharded caches 8" if model == 4
+                            else "OK serve gemma3-1b 8200 seq-sharded caches")}
+    for out in outs:
+        for case in cases:
+            assert want[case] in out, (case, out[-2000:])
+    if model == 2:  # gemma3's global layers: their K and V caches on the slots
+        line = next(ln for ln in outs[0].splitlines() if ln.startswith("OK serve gemma3-1b 8200"))
+        assert int(line.rsplit(" ", 1)[1]) > 0, line
 
 
 def test_kernels_see_plain_local_tensors(tmp_path):
