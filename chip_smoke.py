@@ -8,14 +8,18 @@ Drives ``repro_torch`` only (never ``repro`` or ``jax``), on one CUDA device:
 1. the device: its name, and its power limit as nvidia-smi reports it;
 2. builds the hand-written kernels from ``src/repro_torch/csrc`` with nvcc, and
    prints ptxas's registers and spills of K4's tensor-core instantiations (bf16,
-   head_dim 128 and 256), of K2, of K3's main kernel and of K5's five kernels (its
-   three passes in bf16 and f32; none of K3's, K4's or K5's may spill), and, where
-   ``cuobjdump`` is installed, the HMMA instructions of K5's bf16 passes (there must
-   be some);
+   head_dim 128 and 256), of its five f32 SIMT instantiations (head_dim 16 to 256),
+   of K2, of K3's main kernel and of K5's five kernels (its three passes in bf16 and
+   f32; none of K3's, K4's or K5's may spill), and, where ``cuobjdump`` is installed,
+   the HMMA instructions of K5's bf16 passes (there must be some) and the FFMA and
+   tensor-core instructions of K4's f32 kernel (FFMA only: no HMMA, no HGMMA);
 3. holds each kernel against its plain PyTorch version on the card, at the test
    shapes (K4 in f32 on its SIMT kernel and in bf16 on its tensor-core kernel, plus
    bf16 cases at head_dim 256 with window 512, 16 query heads on 8 kv heads at Sq
-   1024, and ragged Sq, Skv at head_dim 128 and 256; K2 also at a width of 100) and
+   1024, and ragged Sq, Skv at head_dim 128 and 256; the f32 kernel also at the main
+   paths' shapes, every head_dim at GQA groups of 1, 4 and 8, windows that cross a KV
+   tile and ragged Sq != Skv, untimed, its lse against the chunked twin and two calls
+   bitwise equal; K2 also at a width of 100) and
    at the shapes of the gemma3-1b serving path, and times the kernel, the plain
    version and one PyTorch library call that computes the same function (a yardstick
    the port never calls), with K4's achieved TFLOP/s and share of its bound.  Every
@@ -32,8 +36,9 @@ Drives ``repro_torch`` only (never ``repro`` or ``jax``), on one CUDA device:
    the kernel launches of the run;
 6. runs the same prefill with the plain versions and compares the logits;
 7. holds the training path's kernels against their plain versions: the rmsnorm
-   backward (K3: two calls bitwise equal), the attention kernel's logsumexp (K4, also
-   at phase 3's added bf16 cases), and the gradients of the ops' autograd Functions against plain autograd; and the head's bf16 product with
+   backward (K3: two calls bitwise equal), the attention kernel's logsumexp and
+   output (K4: two calls bitwise equal; also at phase 3's added bf16 cases), and the
+   gradients of the ops' autograd Functions against plain autograd; and the head's bf16 product with
    an f32 result against f32 products, forward and backward;
 8. checks one small f32 train step, the card with its kernels against the CPU with
    the plain versions;
@@ -151,8 +156,10 @@ Drives ``repro_torch`` only (never ``repro`` or ``jax``), on one CUDA device:
     gemma3-1b's prefill and decode, bitwise equal to the single-device path;
 33. two ranks sharing the card over gloo: ``launch.train`` on 2x1 and 1x2 meshes, and this
     script's ``--sharded-rank`` program holding each rank's f32 step (and, on 1x2,
-    mamba2's prefill and internlm2's placed prefill and greedy decode, the attention over
-    the cache on each rank's heads) to the single-device values;
+    mamba2's prefill, internlm2's placed prefill and greedy decode, the attention over
+    the cache on each rank's heads, and gemma3-1b's with 8200 cache slots: its one kv
+    head under two q-head shards and its global layer's cache sharded on its slots) to
+    the single-device values; then K4's f32 kernel timed at a rank's prefill shapes;
 34. the dry run (``repro_torch.launch.dryrun``) of five production cells on fake meshes
     (among them internlm2's and mamba2's ``decode_32k``, the decode on local shards),
     in processes of their own beside phases 32-33, with their memory, bytes accessed and
@@ -330,6 +337,11 @@ SH_DRYRUN = (("internlm2-1.8b", "train_4k", "single"), ("gemma3-1b", "decode_32k
 # sharded tests' rtol: the model axis sums the row-parallel products in two halves), and
 # the greedy picks equal wherever the single device's top two logits are further apart
 SH_DECODE_REL = 2e-4
+# phase 33's long placed decode: gemma3-1b (f32) cut to its first period of 5 local and 1
+# global layer, the fewest that keep a global layer, with 8200 cache slots: past 8192 the
+# global layer's cache is sharded on its slots (tests/test_torch_sharded_exec.py's
+# decode_long case at full width)
+SH_GEMMA_LAYERS, SH_LONG_SLOTS = 6, 8200
 
 # The examples (phase 35): each examples/torch_<name>.py runs in this process as ``python
 # examples/torch_<name>.py`` runs it (its module loaded by runpy; its __main__ block is a
@@ -602,6 +614,26 @@ FA_TEST_CASES = [
     (2, 4, 2, 37, 70, 64, True, 16),
 ]
 
+# (B, H, KVH, Sq, Skv, D, causal, window): K4's f32 path (the register-blocked SIMT
+# kernel) at the main paths' shapes (train_e2e's local and global layers, a 1x2 rank's
+# heads in internlm2's and gemma3-1b's f32 placed prefills), every head_dim at GQA
+# groups of 1, 4 and 8, windows whose edge crosses a KV tile mid-way, Sq != Skv, and
+# Sq, Skv off its 64-row query and 64- or 32-key KV tiles, as
+# tests/test_torch_kernels_cuda.py's SIMT_CASES
+FA_SIMT_CASES = [
+    (8, 8, 2, 256, 256, 64, True, 256),
+    (8, 8, 2, 256, 256, 64, True, None),
+    (4, 8, 4, 1024, 1024, 128, True, None),
+    (4, 2, 1, 1024, 1024, 256, True, 512),
+    (2, 8, 1, 77, 77, 16, True, None),
+    (1, 8, 2, 300, 300, 32, True, 40),
+    (2, 4, 4, 100, 230, 64, False, None),
+    (1, 8, 1, 333, 333, 128, True, 40),
+    (2, 4, 4, 70, 150, 128, False, None),
+    (1, 4, 1, 130, 200, 256, True, None),
+    (2, 2, 2, 150, 150, 256, True, 48),
+]
+
 # (B, H, KVH, Sq, Skv, D, causal, window): K4's bf16 tensor-core path at the main
 # paths' geometries (gemma3-1b's local layers, internlm2-1.8b's 16 query heads on 8 kv
 # heads) and Sq, Skv off its 128-row query and 64-key KV tiles at head_dim 128 and
@@ -640,45 +672,24 @@ def time_ms(torch, fn, reps: int = 30, warmup: int = 3) -> float:
 
 
 def host_us(torch, fn, calls: int = 200) -> float:
-    """Microseconds of host time per call: ``calls`` calls back to back, without a
-    synchronise between them, by host clock."""
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(calls):
-        fn()
-    out = (time.perf_counter() - t0) / calls * 1e6
-    torch.cuda.synchronize()
-    return out
+    """Microseconds of host time per call (``repro_torch.launch.devtime.host_us``, the
+    profile scripts' timer too)."""
+    from repro_torch.launch import devtime
+    return devtime.host_us(fn, calls)
 
 
 def kernel_ms(torch, fn, reps: int = 30, warmup: int = 3, host: float | None = None) -> float:
-    """Median milliseconds the card spends on one call, by CUDA events, with no host
-    time in them: after the L2 flush the card spins (``torch.cuda._sleep``) for twice
-    the call's host time plus 0.2 ms, so the call's launches are queued before the
-    start event fires and the events see the card's work alone.  ``host`` is the
-    call's host µs (measured here when not given)."""
-    s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    s.record()
-    torch.cuda._sleep(2_000_000)
-    e.record()
-    torch.cuda.synchronize()
-    cycles_per_ms = 2_000_000 / s.elapsed_time(e)  # the spin's rate at the card's clock now
-    flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
+    """Median milliseconds the card spends on one call, with no host time in them
+    (``repro_torch.launch.devtime.kernel_ms``: after the L2 flush the card spins for
+    twice the call's host time plus 0.2 ms, so the call's launches are queued before
+    the start event fires).  ``host`` is the call's host µs (measured here when not
+    given)."""
+    from repro_torch.launch import devtime
     for _ in range(warmup):
         fn()
     if host is None:
-        host = host_us(torch, fn, calls=20)
-    cycles = int((2 * host / 1e3 + 0.2) * cycles_per_ms)
-    starts = [torch.cuda.Event(enable_timing=True) for _ in range(reps)]
-    ends = [torch.cuda.Event(enable_timing=True) for _ in range(reps)]
-    for s, e in zip(starts, ends):
-        flush.zero_()
-        torch.cuda._sleep(cycles)
-        s.record()
-        fn()
-        e.record()
-    torch.cuda.synchronize()
-    return statistics.median(s.elapsed_time(e) for s, e in zip(starts, ends))
+        host = devtime.host_us(fn, calls=20)
+    return devtime.kernel_ms(fn, host, reps)
 
 
 def readings(torch, fn, reps: int = 30) -> dict:
@@ -707,6 +718,9 @@ def fmt(r: dict) -> str:
     return f"kernel_ms {r['kernel_ms']:.4f} call_ms {r['call_ms']:.4f} host_us {r['host_us']:.1f}"
 
 
+# K4's f32 instantiations (csrc/flash_attention.cu): held to zero spills in phase 2
+FA_SIMT_ENTRIES = {f"fa_fwd_simt_kernelILi{d}E": f"K4 SIMT f32, head_dim {d}"
+                   for d in (16, 32, 64, 128, 256)}
 # K5's kernels (csrc/ssd_scan.cu): every one is held to zero spills in phase 2
 SSD_ENTRIES = {"ssd_chunk_state_tc": "K5 chunk state, bf16 (mma.sync)",
                "ssd_chunk_state_f32": "K5 chunk state, f32",
@@ -736,27 +750,14 @@ def sass_counts(lib: Path, opcode: str, entries: list[str]) -> dict | None:
 def ptxas_entries(log: str) -> list[tuple[str, int, int, int]]:
     """(kernel entry, registers, spill-store bytes, spill-load bytes) of each entry
     function in nvcc's -Xptxas -v output."""
-    out, entry, spills = [], None, (0, 0)
-    for line in log.splitlines():
-        if "Compiling entry function" in line:
-            entry = line.split("'")[1]
-        elif "spill stores" in line:
-            found = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
-            spills = (int(found[1]), int(found[2]))
-        elif entry is not None and (used := re.search(r"Used (\d+) registers", line)):
-            out.append((entry, int(used[1]), *spills))
-            entry, spills = None, (0, 0)
-    return out
+    from repro_torch.launch import devtime
+    return devtime.ptxas_entries(log)
 
 
 def visible_pairs(Sq: int, Skv: int, causal: bool, window: int | None) -> int:
     """(query, key) pairs the masks leave visible: the work attention must do."""
-    n = 0
-    for i in range(Sq):
-        hi = min(i, Skv - 1) if causal else Skv - 1
-        lo = max(0, i - window + 1) if window is not None else 0
-        n += max(0, hi - lo + 1)
-    return n
+    from repro_torch.launch import devtime
+    return devtime.visible_pairs(Sq, Skv, causal, window)
 
 
 def k1_library_call(torch, members: list, operands: tuple, want):
@@ -2167,7 +2168,17 @@ def sharded_phases(torch, dev, card: str) -> dict:
                        f"of the largest, bound {SH_DECODE_REL}), greedy picks differ at "
                        f"{c['decode']['flips']} of {c['decode']['picks']}; "
                        f"{c['decode']['step_s']}s a step; launches "
-                       f"{c['decode']['launches']}" if c.get("decode") else ""))
+                       f"{c['decode']['launches']}" if c.get("decode") else "")
+                    + (f"; gemma3-1b f32 ({SH_GEMMA_LAYERS} layers) placed decode with "
+                       f"{SH_LONG_SLOTS} slots ({c['decode_long']['seq_sharded']} caches sharded "
+                       f"on their slots), prefill {SH_SERVE_B} x {SH_S} and {SH_GEN} steps: "
+                       f"logits within {c['decode_long']['err']:.3e} "
+                       f"({c['decode_long']['rel']:.2e} of the largest, bound {SH_DECODE_REL}), "
+                       f"greedy picks differ at {c['decode_long']['flips']} of "
+                       f"{c['decode_long']['picks']}; {c['decode_long']['step_s']}s a step; "
+                       f"launches {c['decode_long']['launches']}; "
+                       f"{c['decode_long']['seconds']}s with its single-device reference"
+                       if c.get("decode_long") else ""))
             trace = checks[0]["trace"]
             assert trace and trace["wall_ms"] > 0 and trace["device_busy_ms"] > 0, trace
             say(f"[sharded-{data}x{model}] {card}: rank 0's last step under torch.profiler: wall "
@@ -2182,6 +2193,8 @@ def sharded_phases(torch, dev, card: str) -> dict:
             if checks[0].get("decode"):
                 for part in ("prefill", "decode"):
                     out[f"{part}_placed_{data}x{model}"] = checks[0]["decode"]["launches"][part]
+                    out[f"{part}_placed_long_{data}x{model}"] = \
+                        checks[0]["decode_long"]["launches"][part]
 
     # -- 34 (collected). the dry run's processes, started before phase 32 ----------------
         records = []
@@ -2353,7 +2366,9 @@ def examples_phase(torch, dev, card: str) -> dict:
     n_params = re.search(r"(\S+)M params", printed).group(1)
     say(f"[example-train-e2e] {card}: {E2E_STEPS} steps of config_100m ({n_params}M params, "
         f"f32) at 8 x 256 in {time.monotonic() - t0:.1f}s with 4 checkpoints; loss {first:.3f} "
-        f"-> {last:.3f}; median step {step_s:.4f}s ({8 * 256 / step_s:.0f} tokens/s; steps "
+        f"-> {last:.3f}; median step {step_s:.4f}s (with the first port's SIMT K4 an "
+        f"H100 at 700 W took 0.0544-0.0580s) "
+        f"({8 * 256 / step_s:.0f} tokens/s; steps "
         f"{min(steps):.4f}-{max(steps):.4f}s), peak memory {peak / 2**30:.3f} GiB above the "
         f"{base / 2**30:.3f} GiB the process held; launches a step "
         f"{ {k: v // E2E_STEPS for k, v in want.items() if v} } (pinned)")
@@ -2388,20 +2403,23 @@ def examples_phase(torch, dev, card: str) -> dict:
     return out
 
 
-def _sh_decode(torch, cfg, mesh, dev) -> dict:
+def _sh_decode(torch, cfg, mesh, dev, max_len: int = SH_S + SH_GEN) -> dict:
     """Phase 33's placed decode on this rank: ``cfg``'s prefill of SH_SERVE_B x SH_S and
     SH_GEN greedy steps through ``jit_prefill`` / ``jit_decode_step`` (the attention over
     the cache on this rank's heads, ``boundary.decode_attention``), fed the single-device
-    greedy tokens, against the single-device prefill and steps on the same card."""
+    greedy tokens, against the single-device prefill and steps on the same card.  A
+    ``max_len`` past 8192 shards the global layers' caches on their slots where the kv
+    heads leave the model axis free (the result's ``seq_sharded`` counts those caches)."""
     from repro_torch.distributed import jit_decode_step, jit_prefill, make_rules, make_serve_fns
     from repro_torch.kernels import reset_launches
     from repro_torch.launch.serve import make_prompts
     from repro_torch.models import init_params
     from repro_torch.parallel import MeshContext
+    from repro_torch.tree import leaves as tree_leaves
 
+    t_start = time.monotonic()
     params = init_params(cfg, seed=0, device=dev)
     prompts = make_prompts(cfg, SH_SERVE_B, SH_S, dev)
-    max_len = SH_S + SH_GEN
     pre, dec = make_serve_fns(cfg, max_len)
     with torch.no_grad():
         lg, caches = pre(params, prompts)
@@ -2417,7 +2435,9 @@ def _sh_decode(torch, cfg, mesh, dev) -> dict:
     lg, caches = fp(params, prompts)
     torch.cuda.synchronize()
     launches = {"prefill": _launch_counts()}
-    fd, _, _ = jit_decode_step(cfg, ctx, max_len, params, caches, SH_SERVE_B)
+    fd, _, c_sh = jit_decode_step(cfg, ctx, max_len, params, caches, SH_SERVE_B)
+    seq_sharded = sum(getattr(pl, "dim", None) == 2 for c in tree_leaves(
+        c_sh, is_leaf=lambda x: isinstance(x, tuple)) for pl in c)
     got = [lg]
     reset_launches()
     t0 = time.perf_counter()
@@ -2437,7 +2457,8 @@ def _sh_decode(torch, cfg, mesh, dev) -> dict:
         flips += int(differ.sum())
         assert not bool((differ & (top2[:, 0] - top2[:, 1] > 2 * SH_DECODE_REL * scale)).any())
     out = {"err": err, "rel": err / scale, "picks": picks, "flips": flips,
-           "step_s": round(step_s, 4), "launches": launches}
+           "step_s": round(step_s, 4), "launches": launches, "max_len": max_len,
+           "seq_sharded": seq_sharded, "seconds": round(time.monotonic() - t_start, 1)}
     assert err <= SH_DECODE_REL * scale, out
     if dev.type == "cuda":  # K2 on each rank's rows, K4 on its heads in the prefill only
         L = cfg.n_layers
@@ -2548,6 +2569,15 @@ def sharded_rank(argv_json: str) -> int:
         del params
         torch.cuda.empty_cache()
         report["decode"] = _sh_decode(torch, cfg, mesh, dev)
+        torch.cuda.empty_cache()
+        # gemma3-1b's single kv head under two q-head shards (K and V cut to it, not
+        # sharded) and, at SH_LONG_SLOTS, its global layers' caches sharded on their
+        # slots: each rank attends over its own block, combined by a max and a sum
+        # all-reduce; K4 f32 at head_dim 256 with window 512 in the prefill
+        gcfg = dataclasses.replace(get_config("gemma3-1b"), n_layers=SH_GEMMA_LAYERS,
+                                   param_dtype="float32", compute_dtype="float32")
+        report["decode_long"] = _sh_decode(torch, gcfg, mesh, dev, max_len=SH_LONG_SLOTS)
+        assert report["decode_long"]["seq_sharded"] > 0, report["decode_long"]
     line_out("SHARDED_CHECK " + json.dumps(report))
     # the group ends as the launcher's does, and a crash here fails the phase
     dist.barrier()
@@ -2608,6 +2638,7 @@ def main() -> int:
             say(f"[build] {line.strip()}")
     watched = {"fa_fwd_tc_kernelILi128E": "K4 tensor-core bf16, head_dim 128",
                "fa_fwd_tc_kernelILi256E": "K4 tensor-core bf16, head_dim 256",
+               **FA_SIMT_ENTRIES,
                "rmsnorm_fwd_kernel": "K2 warp-per-row",
                "rmsnorm_bwd_kernel": "K3 main kernel",
                **SSD_ENTRIES}
@@ -2624,10 +2655,17 @@ def main() -> int:
     assert seen == set(watched), f"the build log names no {set(watched) - seen}"
     hmma = sass_counts(build.library_path(), "HMMA", [k for k in SSD_ENTRIES if "_tc" in k])
     if hmma is None:
-        say("[build] cuobjdump not found: K5's SASS not inspected")
+        say("[build] cuobjdump not found: K5's and K4 f32's SASS not inspected")
     else:
         say(f"[build] K5 bf16 passes, HMMA instructions in the SASS: {hmma}")
         assert all(n > 0 for n in hmma.values()), hmma
+        # K4's f32 kernel computes on the CUDA cores only: FFMA, and no tensor-core
+        # instruction (TF32 would be HMMA, wgmma HGMMA)
+        mma = sass_counts(build.library_path(), "(?:HMMA|HGMMA)", list(FA_SIMT_ENTRIES))
+        ffma = sass_counts(build.library_path(), "FFMA", list(FA_SIMT_ENTRIES))
+        say(f"[build] K4 f32 instantiations, FFMA instructions in the SASS: {ffma}; tensor-core "
+            f"instructions (HMMA, HGMMA): {mma}")
+        assert all(n == 0 for n in mma.values()) and all(n > 0 for n in ffma.values()), (mma, ffma)
 
     # -- 3. kernels against plain versions ----------------------------------
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -2760,17 +2798,28 @@ def main() -> int:
             f"{bound_ms / rec['ms']:.1%} of it")
         return rec
 
-    def fa_lse_case(q, k, v, causal, window):
-        """K4 with its logsumexp against the chunked twin: errors, kernel / twin / SDPA
-        times, bound.  Every row of these cases has a visible column."""
+    def fa_lse_case(q, k, v, causal, window, timed=True):
+        """K4 with its logsumexp against the chunked twin (and its output against the
+        plain version too), two calls bitwise equal; timed, the kernel / twin / SDPA
+        times and the bound.  Every row of these cases has a visible column."""
         B_, H_, Sq, D_ = q.shape
         Skv = k.shape[2]
         o, lse = flash_attention_fwd(q, k, v, causal=causal, window=window, return_lse=True)
         want_o, want_lse = ref.flash_attention_fwd_lse_chunked(q, k, v, causal=causal,
                                                                window=window)
         err = check(o, want_o, dtype_name(q))
+        plain_err = check(o, ref.flash_attention_ref(q, k, v, causal=causal, window=window),
+                          dtype_name(q))
         torch.testing.assert_close(lse, want_lse, **TOL["float32"])
         lse_err = (lse - want_lse).abs().max().item()
+        o2, lse2 = flash_attention_fwd(q, k, v, causal=causal, window=window, return_lse=True)
+        assert torch.equal(o2, o) and torch.equal(lse2, lse), "K4 is not deterministic"
+        if not timed:
+            say(f"[kernels] flash_attention_fwd+lse {dtype_name(q)} ({fa_path(q)}) "
+                f"q{(B_, H_, Sq, D_)} kv{(k.shape[1], Skv)} causal={causal} window={window}: "
+                f"max_abs_err o {err:.3e} (plain {plain_err:.3e}) lse {lse_err:.3e}, two calls "
+                f"bitwise equal")
+            return None
         if causal and window is None and Sq == Skv:
             lib = lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True)
         else:
@@ -2951,6 +3000,9 @@ def main() -> int:
     for B, H, KVH, Sq, Skv, D, causal, window in FA_TC_CASES:
         fa_case(randn(B, H, Sq, D, dtype=torch.bfloat16), randn(B, KVH, Skv, D, dtype=torch.bfloat16),
                 randn(B, KVH, Skv, D, dtype=torch.bfloat16), causal, window)
+    for B, H, KVH, Sq, Skv, D, causal, window in FA_SIMT_CASES:  # its output, lse, repeat
+        fa_lse_case(randn(B, H, Sq, D), randn(B, KVH, Skv, D), randn(B, KVH, Skv, D), causal,
+                    window, timed=False)
 
     # the serving path's shapes: K2 on prefill rows and decode rows; K4 on the local
     # layers (window 512, 22 of 26: the kernel's record) and the global ones
@@ -3517,6 +3569,26 @@ def main() -> int:
                             randn(B_, KVH_, SH_S, 128, dtype=torch.bfloat16), True)
         records["flash_attention_fwd"].setdefault("at_shapes", []).append(
             {**row, "launches_a_step": sharded_counts[path]["flash_attention_fwd"]})
+    # K4's f32 kernel at a 1x2 rank's heads in the f32 placed prefills: internlm2's, and
+    # gemma3-1b's local (window 512) and global layers at head_dim 256, each row with the
+    # launches of its own shape (one a layer: gemma3's by its layer pattern)
+    g_kinds = [sp.attn_kind for sp in dataclasses.replace(
+        get_config("gemma3-1b"), n_layers=SH_GEMMA_LAYERS).layer_specs()]
+    g_total = sharded_counts["prefill_placed_long_1x2"]["flash_attention_fwd"]
+    assert g_total == len(g_kinds), ("one K4 launch a layer", g_total, g_kinds)
+    for label, (H_, KVH_, D_), window, launches in (
+            ("1x2 rank's heads, internlm2 f32 placed prefill", (8, 4, 128), None,
+             sharded_counts["prefill_placed_1x2"]["flash_attention_fwd"]),
+            ("1x2 rank's heads, gemma3-1b f32 placed prefill, local layers", (2, 1, 256), 512,
+             g_kinds.count("local")),
+            ("1x2 rank's heads, gemma3-1b f32 placed prefill, global layer", (2, 1, 256), None,
+             g_kinds.count("global"))):
+        rec = fa_case(randn(SH_SERVE_B, H_, SH_S, D_), randn(SH_SERVE_B, KVH_, SH_S, D_),
+                      randn(SH_SERVE_B, KVH_, SH_S, D_), True, window)
+        records["flash_attention_fwd"].setdefault("at_shapes", []).append(
+            {"shape": f"{label}: q ({SH_SERVE_B},{H_},{SH_S},{D_}) kv ({SH_SERVE_B},{KVH_},"
+                      f"{SH_S},{D_}) f32 causal window={window}",
+             "launches_a_prefill": launches, **{k: rec[k] for k in keys}})
     rec = ssd_case(*ssd_inputs(SH_SERVE_B, SH_S, 16, 64, 1, 128, torch.float32), timed=True)
     records["ssd_scan_fwd"].setdefault("at_shapes", []).append(
         {"shape": "1x2 rank's 16 of mamba2's 32 heads, f32", "launches_a_prefill":

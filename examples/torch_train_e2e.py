@@ -107,16 +107,25 @@ def main(argv=None, *, on_step=None) -> int:
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = ap.parse_args(argv)
 
+    stamps = []
+
+    def stamped(step, metrics):
+        stamps.append(time.monotonic())
+        if on_step is not None:
+            on_step(step, metrics)
+
     t0 = time.monotonic()
     res = train(args.steps, args.batch, args.seq, args.ckpt_dir, device=args.device,
-                on_step=on_step)
+                on_step=stamped)
     n_params = sum(leaf.numel() for leaf in T.leaves(res.state["params"]))
     first, last = np.mean(res.losses[:10]), np.mean(res.losses[-10:])
     toks = args.steps * args.batch * args.seq
     dt = time.monotonic() - t0
+    # between the ends of consecutive steps, so the first step's set-up is left out
+    step_s = np.median(np.diff(stamps)) if len(stamps) > 1 else float("nan")
     print(
         f"\n{n_params/1e6:.1f}M params · {args.steps} steps · loss {first:.3f} → {last:.3f}"
-        f" · {toks/dt:.0f} tok/s · {res.restarts} restarts"
+        f" · {toks/dt:.0f} tok/s · median step {step_s:.4f}s · {res.restarts} restarts"
     )
     assert last < first
     return 0

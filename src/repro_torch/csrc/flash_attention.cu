@@ -7,9 +7,9 @@
 // the KV tiles in a loop, keeping the state (running max m, running sum l, the
 // accumulator) in registers.
 //
-// Bound on the H100: operations.  Per query tile every KV tile costs 2 * BQ * 64 * D
-// multiply-adds against (2 * 64 * D) loaded values, well above the card's ~295
-// operations per byte.  Two kernels, chosen by dtype in flash_attention_fwd below:
+// Bound on the H100: operations.  Per query tile every KV tile of BK keys costs
+// 2 * BQ * BK * D multiply-adds against 2 * BK * D loaded values, well above the card's
+// ~295 bf16 (~20 f32) operations per byte.  Two kernels, chosen by dtype in flash_attention_fwd below:
 //
 // bf16 (every main path): fa_fwd_tc_kernel, on the tensor cores.
 //   * A block of 384 threads: two consumer warpgroups of 64 query rows each (BQ 128)
@@ -38,11 +38,36 @@
 //     never loaded; a warpgroup skips the tiles masked for all its 64 rows, and only
 //     the tiles that cross the diagonal, the window's edge or Skv take per-element
 //     masks.  Query tiles are issued longest first (the last causal tile first).
-// f32: fa_fwd_simt_kernel, the plain f32 FMAs of the first port.  Tensor cores on f32
-//   inputs would be TF32 (10-bit mantissas), a numerics change the reference does not
-//   make, so f32 stays on the SIMT kernel: 64-row query tiles, K and V tiles loaded
-//   synchronously into shared memory, 4 x 4 scores a thread.
-//
+// f32 (the examples, the f32 placed prefills): fa_fwd_simt_kernel, on the CUDA cores.
+//   Tensor cores on f32 inputs would be TF32 (10-bit mantissas), a numerics change the
+//   reference does not make, so every product is an FFMA; its bound is the card's
+//   67 TFLOP/s of f32 FMA.  The design is an FFMA SGEMM's, twice a KV tile:
+//   * A block owns 64 query rows (32 at head_dim 16) in row groups of 16 lanes (a
+//     half-warp).  Each thread holds TM rows (ty + RY i: 4, or 8 at head_dim 32 and
+//     128) by BK / 16 keys (tx + 16 j) of S, and the same rows by D / 16 columns of the
+//     accumulator.  Q, K and V tiles keep their (row, D) layout with 16 bytes of
+//     padding a row, so a thread reads 4 columns of D of a row in one 16-byte load:
+//     per 4 columns of D, TM loads of Q (two rows a warp: a broadcast) and BK / 16 of
+//     K (16 consecutive rows a half-warp, in distinct banks) feed 4 TM BK / 16 FMAs.
+//     P goes through shared memory only within its half-warp, so a __syncwarp and no
+//     block barrier publishes it; P·V then reads 4 keys of P a row and 16-byte pieces
+//     of V rows along D.
+//   * K and V tiles (64 keys at head_dim 32 and 64, 32 elsewhere) come by cp.async
+//     16-byte copies into a ring of 2 stages, with Q in the first group: while tile t
+//     is computed, tile t + 1 is in flight.  One block barrier a tile.
+//   * Shared memory is 19, 67, 108, 114 and 212 KB a block at head_dim 16 to 256: two
+//     blocks an SM at 64 and 128 (with the carveout set to all shared memory), one at
+//     256.  __launch_bounds__ names those block counts, so no instantiation spills.
+//   * As in the bf16 kernel: tiles no row of the block sees are skipped, only tiles
+//     that cross the diagonal, the window's edge or Skv take per-element masks, query
+//     tiles are issued longest first, and the softmax is exp2 with the scale and
+//     log2(e) folded into one multiply of the f32 scores.
+//   At train_e2e's shape a block alone takes about 4.4 us a 64 x 64 x 64 tile, half the
+//   SM's FMA rate (launch/profile_flash.py's probes), so the longest causal blocks, 4
+//   tiles, set the call's time.  Larger register tiles read from d-major Q and K tiles
+//   (csrc/variants/k4_f32_dmajor.patch: 8 x 8 or 8 x 4 scores a thread, 4 or 2.67 FMAs
+//   a shared-memory word against 2 here at head_dim 64) were slower at head_dim 64 and
+//   128: fewer threads share a tile's FMAs, so the longest block's walk takes longer.
 // With a non-null `lse` pointer the kernels also write each row's logsumexp,
 // lse = m + log(l) in the scaled-score units of the reference's chunked twin
 // (src/repro/kernels/ref.py::flash_attention_fwd_lse_chunked): the residual the
@@ -68,6 +93,24 @@
 namespace repro_torch {
 namespace {
 
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+constexpr float kNegInfLog2 = -1e30f * kLog2e;  // the finite mask value, in log2 units
+constexpr int kMaxDevices = 64;
+
+// Runs `set` (a kernel's shared-memory attributes) on the current device the first time
+// a launch there asks: the attributes are per device, and setting them on every call
+// costs host time.  `done` is the calling kernel's record.
+template <typename Set>
+cudaError_t once_per_device(bool (&done)[kMaxDevices], Set set) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess || (dev < kMaxDevices && done[dev])) return err;
+  err = set();
+  if (err == cudaSuccess && dev < kMaxDevices) done[dev] = true;
+  return err;
+}
+
 // ==================================================================================
 // bf16: the tensor-core kernel
 // ==================================================================================
@@ -81,9 +124,6 @@ constexpr int kConsumers = 2;                  // consumer warpgroups
 constexpr int kBQ = kConsumers * kWgRows;      // query rows per block
 constexpr int kStages = 2;                     // K/V ring depth
 constexpr int kThreads = (kConsumers + 1) * 128;
-constexpr float kLog2e = 1.4426950408889634f;
-constexpr float kLn2 = 0.6931471805599453f;
-constexpr float kNegInfLog2 = -1e30f * kLog2e;  // the finite mask value, in log2 units
 
 // Shared-memory geometry at head_dim D.  Each tile is stored as NC column chunks of
 // COLS bf16 (SW bytes a row), the chunk the TMA box and the swizzle cover.
@@ -367,8 +407,11 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse, int
   if (!encode_map<D>(&tq, q, Sq, B * H, kWgRows) || !encode_map<D>(&tk, k, Skv, B * KVH, kBK) ||
       !encode_map<D>(&tv, v, Skv, B * KVH, kBK))
     return static_cast<int>(cudaErrorInvalidValue);
-  const cudaError_t err = cudaFuncSetAttribute(
-      fa_fwd_tc_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, G::SMEM);
+  static bool configured[kMaxDevices] = {};
+  const cudaError_t err = once_per_device(configured, [] {
+    return cudaFuncSetAttribute(fa_fwd_tc_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                G::SMEM);
+  });
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long blocks = static_cast<long long>((Sq + kBQ - 1) / kBQ) * B * H;
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
@@ -381,193 +424,322 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse, int
 }  // namespace tc
 
 // ==================================================================================
-// f32: the SIMT kernel
+// f32: the register-blocked SIMT kernel
 // ==================================================================================
 namespace simt {
 
-constexpr int BQ = 64;         // query rows per block
-constexpr int BK = 64;         // keys per KV tile
-constexpr int kThreads = 256;  // 16 x 16 threads: each owns 4 query rows
-constexpr int PS = BK + 1;     // row stride of the P tile (pad: no bank conflicts)
-constexpr float kNegInf = -1e30f;
-// row padding of the f32 Q and K tiles: an odd row stride in 32-bit words puts 16
-// consecutive rows in 16 different shared-memory banks
-constexpr int kRowPad = 1;
+constexpr int kRX = 16;             // lanes of a row group: a half-warp
+constexpr int kPad = 4;             // floats of padding after each row of the Q, K and V tiles
+constexpr int kSmemPerSM = 233472;  // 228 KB, of which each block also holds 1 KB
+
+// Tile geometry at head_dim D, as measured best on the H100 (launch/profile_flash.py):
+// 64 query rows a block (32 at head_dim 16, whose calls are short), 4 rows a thread
+// (256 threads: the more warps hide more latency) where the registers allow it and 8
+// (128 threads) at head_dim 32 and 128; KV tiles of 64 keys at head_dim 32 and 64 and
+// of 32 elsewhere, so that two blocks fit an SM at head_dim 128 and one at 256.  The
+// Q, K and V tiles keep their (row, D) layout with rows padded by 16 bytes: the 8 lanes
+// of a quarter-warp that read one 16-byte piece of 8 consecutive rows then hit 8
+// different bank groups at every D.  P's row stride is 16 words off a multiple of 32,
+// so the two row groups of a warp write disjoint banks.
+template <int D>
+struct Tile {
+  static constexpr int BQ = D == 16 ? 32 : 64;             // query rows per block
+  static constexpr int TM = D == 32 || D == 128 ? 8 : 4;  // query rows a thread: ty + RY i
+  static constexpr int BK = D == 32 || D == 64 ? 64 : 32;  // keys per KV tile
+  static constexpr int RY = BQ / TM;                       // row groups
+  static constexpr int THREADS = RY * kRX;
+  static constexpr int TN = BK / kRX;         // keys per thread: tx + 16 j
+  static constexpr int CW = D / kRX;          // output columns per thread
+  static constexpr int VW = CW < 4 ? CW : 4;  // floats per vector load of V and store of O
+  static constexpr int NV = CW / VW;          // vectors a row: columns VW tx + 16 VW c + e
+  static constexpr int QS = D + kPad;         // row stride of the Q, K and V tiles
+  static constexpr int PS = BK + kRX;         // row stride of the P tile
+  static constexpr int KV_TILE = BK * QS;
+  static constexpr int OFF_K = BQ * QS;        // in floats; then V, then P
+  static constexpr int OFF_V = OFF_K + 2 * KV_TILE;
+  static constexpr int OFF_P = OFF_V + 2 * KV_TILE;
+  static constexpr int SMEM = (OFF_P + BQ * PS) * 4;  // bytes
+  // blocks an SM holds by shared memory, at most 4 (19, 67, 108, 114 and 212 KB a
+  // block at head_dim 16 to 256: 4, 3, 2, 2 and 1)
+  static constexpr int MIN_BLOCKS =
+      kSmemPerSM / (SMEM + 1024) < 4 ? kSmemPerSM / (SMEM + 1024) : 4;
+};
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(hopper::smem_addr(dst)),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// ROWS rows of a (S, D) head from row `first` into a padded shared tile, 16 bytes a
+// copy; rows at or past `limit` are zero-filled (V's must be: 0 * garbage may be NaN)
+template <int D, int ROWS>
+__device__ __forceinline__ void load_rows(float* dst, const float* src, int first, int limit) {
+  constexpr int CHUNKS = D / 4, THREADS = Tile<D>::THREADS;
+  static_assert(ROWS * CHUNKS % THREADS == 0, "a tile must split evenly over the block");
+#pragma unroll
+  for (int n = 0; n < ROWS * CHUNKS / THREADS; ++n) {
+    const int idx = threadIdx.x + n * THREADS;
+    const int r = idx / CHUNKS, c = idx % CHUNKS;
+    const int gr = first + r;
+    const bool in = gr < limit;
+    cp_async16(dst + r * Tile<D>::QS + 4 * c, src + static_cast<size_t>(in ? gr : 0) * D + 4 * c,
+               in);
+  }
+}
+
+// One KV tile's online-softmax step on this thread's TM x TN scores (rows row0 + RY i,
+// columns col0 + 16 j): the scale into log2 units, the masks (kMask), each row's max
+// over its 16 lanes, the rescale of l and of the accumulator, and P in place of S.
+template <int TM, int RY, int TN, int CW, bool kMask>
+__device__ __forceinline__ void softmax_step(float (&s)[TM][TN], float (&m)[TM],
+                                             float (&l)[TM], float (&acc)[TM][CW], int row0,
+                                             int col0, int Skv, int causal, int window,
+                                             float scale_log2) {
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int row = row0 + RY * i;
+    float mx = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < TN; ++j) {
+      float t = s[i][j] * scale_log2;
+      if constexpr (kMask) {
+        const int col = col0 + kRX * j;
+        if (col >= Skv) {
+          t = -INFINITY;
+        } else if ((causal && col > row) || (window > 0 && col <= row - window)) {
+          t = kNegInfLog2;
+        }
+      }
+      s[i][j] = t;
+      mx = fmaxf(mx, t);
+    }
+#pragma unroll
+    for (int off = kRX / 2; off > 0; off >>= 1)
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+    const float m_new = fmaxf(m[i], mx);
+    const float alpha = exp2f(m[i] - m_new);
+    m[i] = m_new;
+    float sum = 0.f;  // this lane's part of the row sum; the 16 parts meet at the end
+#pragma unroll
+    for (int j = 0; j < TN; ++j) {
+      s[i][j] = exp2f(s[i][j] - m_new);
+      sum += s[i][j];
+    }
+    l[i] = l[i] * alpha + sum;
+#pragma unroll
+    for (int c = 0; c < CW; ++c) acc[i][c] *= alpha;
+  }
+}
+
+// VW consecutive floats between shared or global memory and registers, as one load or
+// store of 4, 8 or 16 bytes
+template <int VW>
+__device__ __forceinline__ void load_vec(float* dst, const float* src) {
+  if constexpr (VW == 4) {
+    const float4 t = *reinterpret_cast<const float4*>(src);
+    dst[0] = t.x, dst[1] = t.y, dst[2] = t.z, dst[3] = t.w;
+  } else if constexpr (VW == 2) {
+    const float2 t = *reinterpret_cast<const float2*>(src);
+    dst[0] = t.x, dst[1] = t.y;
+  } else {
+    dst[0] = *src;
+  }
+}
+template <int VW>
+__device__ __forceinline__ void store_vec(float* dst, const float* src) {
+  if constexpr (VW == 4)
+    *reinterpret_cast<float4*>(dst) = make_float4(src[0], src[1], src[2], src[3]);
+  else if constexpr (VW == 2)
+    *reinterpret_cast<float2*>(dst) = make_float2(src[0], src[1]);
+  else
+    *dst = src[0];
+}
 
 template <int D>
-constexpr size_t simt_smem_bytes() {
-  return (2 * BQ * (D + kRowPad) + BK * D) * sizeof(float) + BQ * PS * sizeof(float);
-}
+__global__ void __launch_bounds__(Tile<D>::THREADS, Tile<D>::MIN_BLOCKS)
+    fa_fwd_simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                       const float* __restrict__ v, float* __restrict__ o,
+                       float* __restrict__ lse, int BH, int H, int KVH, int Sq, int Skv,
+                       int causal, int window, float scale_log2) {
+  using G = Tile<D>;
+  constexpr int TM = G::TM, RY = G::RY, BK = G::BK, TN = G::TN, CW = G::CW, VW = G::VW,
+                NV = G::NV, QS = G::QS, PS = G::PS;
+  static_assert(D % 16 == 0 && CW == NV * VW, "head_dim must be a multiple of 16");
+  extern __shared__ __align__(16) float smem[];
+  float* sQ = smem;
+  float* sP = smem + G::OFF_P;
 
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-    fa_fwd_simt_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                  T* __restrict__ o, float* __restrict__ lse, int H, int KVH, int Sq, int Skv,
-                  int causal, int window, float scale) {
-  static_assert(D % 16 == 0, "head_dim must be a multiple of 16");
-  constexpr int QS = D + kRowPad;  // row stride of the Q and K tiles
-  constexpr int DC = D / 16;                // accumulator columns per thread
+  const int tx = threadIdx.x % kRX;
+  const int ty = threadIdx.x / kRX;  // a warp holds row groups 2w and 2w + 1
 
-  extern __shared__ __align__(16) unsigned char smem[];
-  T* sQ = reinterpret_cast<T*>(smem);
-  T* sK = sQ + BQ * QS;
-  T* sV = sK + BK * QS;
-  float* sP = reinterpret_cast<float*>(sV + BK * D);
+  // longest query tiles first: with causality the last tile has the most KV tiles
+  const int n_qt = (Sq + G::BQ - 1) / G::BQ;
+  const int bh = blockIdx.x % BH;
+  const int qt = n_qt - 1 - static_cast<int>(blockIdx.x / BH);
+  const int h = bh % H;
+  const int bkv = (bh / H) * KVH + h / (H / KVH);
+  const int q_start = qt * G::BQ;
+  const int q_last = min(q_start + G::BQ, Sq) - 1;
+  // the KV tiles in which some row of this block sees a column
+  int kt_lo = 0, kt_hi = (Skv + BK - 1) / BK;
+  if (causal) kt_hi = min(kt_hi, q_last / BK + 1);
+  if (window > 0 && q_start - window + 1 > 0) kt_lo = (q_start - window + 1) / BK;
+  const int n_tiles = max(kt_hi - kt_lo, 0);
 
-  const int tid = threadIdx.x;
-  const int tx = tid & 15;  // owns key columns tx + 16 j and head-dim columns tx + 16 c
-  const int ty = tid >> 4;  // owns query rows ty + 16 i
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int kvh = h / (H / KVH);
-  const int q_start = blockIdx.x * BQ;
+  const float* qb = q + static_cast<size_t>(bh) * Sq * D;
+  const float* kb = k + static_cast<size_t>(bkv) * Skv * D;
+  const float* vb = v + static_cast<size_t>(bkv) * Skv * D;
 
-  const T* qb = q + (static_cast<size_t>(b) * H + h) * Sq * D;
-  const T* kb = k + (static_cast<size_t>(b) * KVH + kvh) * Skv * D;
-  const T* vb = v + (static_cast<size_t>(b) * KVH + kvh) * Skv * D;
-  T* ob = o + (static_cast<size_t>(b) * H + h) * Sq * D;
-
-  const T zero = from_f32<T>(0.f);
-  for (int idx = tid; idx < BQ * D; idx += kThreads) {
-    const int r = idx / D, c = idx % D;
-    const int gr = q_start + r;
-    sQ[r * QS + c] = gr < Sq ? qb[static_cast<size_t>(gr) * D + c] : zero;
-  }
-
-  float acc[4][DC];
-  float m[4], l[4];
+  float acc[TM][CW];
+  float m[TM], l[TM];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = kNegInf;
+  for (int i = 0; i < TM; ++i) {
+    m[i] = kNegInfLog2;
     l[i] = 0.f;
 #pragma unroll
-    for (int c = 0; c < DC; ++c) acc[i][c] = 0.f;
+    for (int c = 0; c < CW; ++c) acc[i][c] = 0.f;
   }
 
-  // KV tiles with at least one visible column for some row of this query tile
-  int kt_lo = 0;
-  int kt_hi = (Skv + BK - 1) / BK;
-  if (causal) kt_hi = min(kt_hi, (q_start + BQ - 1) / BK + 1);
-  if (window > 0) {
-    const int first_col = q_start - window + 1;  // oldest column the first row sees
-    if (first_col > 0) kt_lo = first_col / BK;
+  if (n_tiles > 0) {
+    load_rows<D, G::BQ>(sQ, qb, q_start, Sq);
+    load_rows<D, BK>(smem + G::OFF_K, kb, kt_lo * BK, Skv);
+    load_rows<D, BK>(smem + G::OFF_V, vb, kt_lo * BK, Skv);
+    cp_async_commit();
   }
-
-  for (int kt = kt_lo; kt < kt_hi; ++kt) {
-    const int k_start = kt * BK;
-    __syncthreads();  // the previous tile's K, V and P are no longer read
-    for (int idx = tid; idx < BK * D; idx += kThreads) {
-      const int r = idx / D, c = idx % D;
-      const int gr = k_start + r;
-      const bool in = gr < Skv;
-      sK[r * QS + c] = in ? kb[static_cast<size_t>(gr) * D + c] : zero;
-      sV[r * D + c] = in ? vb[static_cast<size_t>(gr) * D + c] : zero;
-    }
+  for (int t = 0; t < n_tiles; ++t) {
+    cp_async_wait_all();
+    // tile t has landed for every thread, and every thread is done with tile t - 1,
+    // whose stage the next copies refill while this tile is computed
     __syncthreads();
-
-    // S = Q K^T for this thread's 4 x 4 entries
-    float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      float qv[4], kv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) qv[i] = to_f32(sQ[(ty + 16 * i) * QS + d]);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) kv[j] = to_f32(sK[(tx + 16 * j) * QS + d]);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
+    if (t + 1 < n_tiles) {
+      const int next = (kt_lo + t + 1) * BK, st = (t + 1) & 1;
+      load_rows<D, BK>(smem + G::OFF_K + st * G::KV_TILE, kb, next, Skv);
+      load_rows<D, BK>(smem + G::OFF_V + st * G::KV_TILE, vb, next, Skv);
+      cp_async_commit();
     }
+    const float* sK = smem + G::OFF_K + (t & 1) * G::KV_TILE;
+    const float* sV = smem + G::OFF_V + (t & 1) * G::KV_TILE;
+    const int k_start = (kt_lo + t) * BK;
+    const bool need_mask = k_start + BK > Skv || (causal && k_start + BK - 1 > q_start) ||
+                           (window > 0 && k_start <= q_last - window);
 
-    // mask, online softmax, P into shared memory, rescale the accumulator
+    // S = Q K^T: per 4 columns of D, TN + TM 16-byte loads for 4 TM TN FMAs
+    float s[TM][TN];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = q_start + ty + 16 * i;
-      float row_max = kNegInf;
+    for (int i = 0; i < TM; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = k_start + tx + 16 * j;
-        float val = s[i][j] * scale;
-        if (col >= Skv) {
-          val = -INFINITY;
-        } else if ((causal && col > row) || (window > 0 && col <= row - window)) {
-          val = kNegInf;
+      for (int j = 0; j < TN; ++j) s[i][j] = 0.f;
+#pragma unroll 8
+    for (int d = 0; d < D; d += 4) {
+      float4 kf[TN];
+#pragma unroll
+      for (int j = 0; j < TN; ++j)
+        kf[j] = *reinterpret_cast<const float4*>(sK + (tx + kRX * j) * QS + d);
+#pragma unroll
+      for (int i = 0; i < TM; ++i) {
+        const float4 qf = *reinterpret_cast<const float4*>(sQ + (ty + RY * i) * QS + d);
+#pragma unroll
+        for (int j = 0; j < TN; ++j) {
+          s[i][j] = fmaf(qf.x, kf[j].x, s[i][j]);
+          s[i][j] = fmaf(qf.y, kf[j].y, s[i][j]);
+          s[i][j] = fmaf(qf.z, kf[j].z, s[i][j]);
+          s[i][j] = fmaf(qf.w, kf[j].w, s[i][j]);
         }
-        s[i][j] = val;
-        row_max = fmaxf(row_max, val);
       }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        row_max = fmaxf(row_max, __shfl_xor_sync(0xffffffffu, row_max, off));
-      const float m_new = fmaxf(m[i], row_max);
-      const float alpha = expf(m[i] - m_new);
-      float row_sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = expf(s[i][j] - m_new);
-        row_sum += p;
-        sP[(ty + 16 * i) * PS + tx + 16 * j] = p;
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        row_sum += __shfl_xor_sync(0xffffffffu, row_sum, off);
-      l[i] = alpha * l[i] + row_sum;
-      m[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < DC; ++c) acc[i][c] *= alpha;
     }
-    __syncthreads();
 
-    // acc += P V
+    if (need_mask)
+      softmax_step<TM, RY, TN, CW, true>(s, m, l, acc, q_start + ty, k_start + tx, Skv, causal,
+                                         window, scale_log2);
+    else
+      softmax_step<TM, RY, TN, CW, false>(s, m, l, acc, q_start + ty, k_start + tx, Skv, causal,
+                                          window, scale_log2);
+
+    // P through shared memory to the lanes of the same half-warp, which alone read
+    // these rows: a warp barrier, not a block one
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+      for (int j = 0; j < TN; ++j) sP[(ty + RY * i) * PS + tx + kRX * j] = s[i][j];
+    __syncwarp();
+
+    // acc += P V: per 4 keys, TM + 4 NV vector loads for 4 TM CW FMAs
 #pragma unroll 4
-    for (int c = 0; c < BK; ++c) {
-      float p[4];
+    for (int kk = 0; kk < BK; kk += 4) {
+      float4 pf[TM];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) p[i] = sP[(ty + 16 * i) * PS + c];
+      for (int i = 0; i < TM; ++i)
+        pf[i] = *reinterpret_cast<const float4*>(sP + (ty + RY * i) * PS + kk);
 #pragma unroll
-      for (int dc = 0; dc < DC; ++dc) {
-        const float vv = to_f32(sV[c * D + tx + 16 * dc]);
+      for (int e = 0; e < 4; ++e) {
+        float vf[CW];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) acc[i][dc] = fmaf(p[i], vv, acc[i][dc]);
+        for (int c = 0; c < NV; ++c)
+          load_vec<VW>(vf + c * VW, sV + (kk + e) * QS + VW * tx + kRX * VW * c);
+#pragma unroll
+        for (int i = 0; i < TM; ++i) {
+          const float p = e == 0 ? pf[i].x : (e == 1 ? pf[i].y : (e == 2 ? pf[i].z : pf[i].w));
+#pragma unroll
+          for (int c = 0; c < CW; ++c) acc[i][c] = fmaf(p, vf[c], acc[i][c]);
+        }
       }
     }
   }
 
+  // ---- epilogue: O = acc / l, lse in natural-log units ------------------------------
+  float* ob = o + static_cast<size_t>(bh) * Sq * D;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q_start + ty + 16 * i;
-    if (row >= Sq) continue;
-    const float denom = l[i] == 0.f ? 1.f : l[i];
+  for (int i = 0; i < TM; ++i) {
+    float lsum = l[i];
 #pragma unroll
-    for (int dc = 0; dc < DC; ++dc)
-      ob[static_cast<size_t>(row) * D + tx + 16 * dc] = from_f32<T>(acc[i][dc] / denom);
-    // the 16 threads of a row hold the same m and l (reduced over tx above)
+    for (int off = kRX / 2; off > 0; off >>= 1) lsum += __shfl_xor_sync(0xffffffffu, lsum, off);
+    const int row = q_start + ty + RY * i;
+    if (row > q_last) continue;
+    const float denom = lsum == 0.f ? 1.f : lsum;
+    float out[CW];
+#pragma unroll
+    for (int c = 0; c < CW; ++c) out[c] = acc[i][c] / denom;
+#pragma unroll
+    for (int c = 0; c < NV; ++c)
+      store_vec<VW>(ob + static_cast<size_t>(row) * D + VW * tx + kRX * VW * c, out + c * VW);
     if (lse != nullptr && tx == 0)
-      lse[(static_cast<size_t>(b) * H + h) * Sq + row] = m[i] + logf(denom);
+      lse[static_cast<size_t>(bh) * Sq + row] = m[i] * kLn2 + logf(denom);
   }
 }
 
-template <typename T, int D>
-int launch_simt(const void* q, const void* k, const void* v, void* o, float* lse, int B, int H,
-                int KVH, int Sq, int Skv, int causal, int window, float scale,
-                cudaStream_t stream) {
-  constexpr size_t smem = simt_smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(fa_fwd_simt_kernel<T, D>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
+template <int D>
+int launch(const void* q, const void* k, const void* v, void* o, float* lse, int B, int H,
+           int KVH, int Sq, int Skv, int causal, int window, float scale, cudaStream_t stream) {
+  using G = Tile<D>;
+  // 16-byte copies and stores
+  if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+       reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o)) & 15)
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  static bool configured[kMaxDevices] = {};
+  const cudaError_t err = once_per_device(configured, [] {
+    cudaError_t e = cudaFuncSetAttribute(
+        fa_fwd_simt_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, G::SMEM);
+    if (e == cudaSuccess)  // the whole 228 KB as shared memory: two blocks at head_dim 128
+      e = cudaFuncSetAttribute(fa_fwd_simt_kernel<D>,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+    return e;
+  });
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((Sq + BQ - 1) / BQ, H, B);
-  fa_fwd_simt_kernel<T, D><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), lse, H, KVH, Sq, Skv, causal, window, scale);
+  const long long blocks = static_cast<long long>((Sq + G::BQ - 1) / G::BQ) * B * H;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  fa_fwd_simt_kernel<D><<<static_cast<unsigned>(blocks), G::THREADS, G::SMEM, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(o), lse, B * H, H, KVH, Sq, Skv, causal, window, scale * kLog2e);
   return static_cast<int>(cudaGetLastError());
 }
-
 
 }  // namespace simt
 
@@ -578,15 +750,14 @@ int launch_by_dtype(const void* q, const void* k, const void* v, void* o, float*
   if (dtype == kBFloat16)
     return tc::launch<D>(q, k, v, o, lse, B, H, KVH, Sq, Skv, causal, window, scale, s);
   if (dtype == kFloat32)
-    return simt::launch_simt<float, D>(q, k, v, o, lse, B, H, KVH, Sq, Skv, causal, window,
-                                       scale, s);
+    return simt::launch<D>(q, k, v, o, lse, B, H, KVH, Sq, Skv, causal, window, scale, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 template <int D>
 long long smem_by_dtype(int dtype) {
   if (dtype == kBFloat16) return tc::Geom<D>::SMEM;
-  if (dtype == kFloat32) return simt::simt_smem_bytes<D>();
+  if (dtype == kFloat32) return simt::Tile<D>::SMEM;
   return -1;
 }
 
@@ -607,8 +778,8 @@ extern "C" long long flash_attention_fwd_smem(int D, int dtype) {
   }
 }
 
-// q, o: (B, H, Sq, D); k, v: (B, KVH, Skv, D); all contiguous with dtype code `dtype`
-// (bf16 also 16-byte aligned).  lse: null, or (B, H, Sq) f32 contiguous, written with
+// q, o: (B, H, Sq, D); k, v: (B, KVH, Skv, D); all contiguous with dtype code `dtype`,
+// 16-byte aligned.  lse: null, or (B, H, Sq) f32 contiguous, written with
 // each row's logsumexp.  window <= 0 means no window.  bf16 runs the tensor-core
 // kernel and f32 the SIMT one.  Launches on `stream` and returns cudaGetLastError().
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,

@@ -15,6 +15,7 @@ import torch
 from . import build
 
 _DTYPES = {torch.float32: "float32", torch.bfloat16: "bfloat16"}
+_CODES = {t: build.DTYPE_CODES[name] for t, name in _DTYPES.items()}
 
 #: head_dim values the kernel is instantiated for
 HEAD_DIMS = (16, 32, 64, 128, 256)
@@ -51,6 +52,11 @@ def check_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window: int | 
         raise ValueError(f"q, k, v lie on {q.device}, {k.device}, {v.device}")
 
 
+#: the (device, head_dim, dtype code) keys whose shared memory a block takes
+#: (``flash_attention_fwd_smem``) has been checked against the card's limit
+_SMEM_CHECKED: set[tuple[int, int, int]] = set()
+
+
 def flash_attention_fwd(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -66,10 +72,20 @@ def flash_attention_fwd(
     With ``return_lse`` returns ``(o, lse)``, lse (B, H, Sq, 1) f32 as the reference's
     ``flash_attention_fwd_lse_chunked`` gives it: ``m + log(l)`` in scaled-score units
     (``-1e30`` on a row with no visible column, where the twin has ``log`` of the
-    number of columns; no causal or windowed row is fully masked)."""
+    number of columns; no causal or windowed row is fully masked).
+
+    The launch is kept lean, as K2's and K3's are: the library is ``build.load``'s
+    handle, the shared-memory check runs once per (device, head_dim, dtype), and the
+    stream is read as a raw handle without entering a device context (unless q lies on
+    another device than the current one)."""
     check_args(q, k, v, window)
     if not q.is_cuda:
         raise ValueError(f"flash_attention_fwd launches a CUDA kernel; q lies on {q.device}")
+    device = q.get_device()
+    if device != torch.cuda.current_device():
+        with torch.cuda.device(device):
+            return flash_attention_fwd(q, k, v, causal=causal, window=window, sm_scale=sm_scale,
+                                       return_lse=return_lse)
     B, H, Sq, D = q.shape
     KVH, Skv = k.shape[1], k.shape[2]
     o = torch.empty_like(q)
@@ -77,21 +93,21 @@ def flash_attention_fwd(
     if B == 0 or H == 0 or Sq == 0:
         return (o, lse) if return_lse else o
     lib = build.load()
-    code = build.DTYPE_CODES[_DTYPES[q.dtype]]
-    smem = lib.flash_attention_fwd_smem(D, code)
-    if not 0 < smem <= SMEM_LIMIT:
-        raise ValueError(
-            f"flash_attention_fwd tiles need {smem} bytes of shared memory at head_dim {D} "
-            f"and {q.dtype}; a block may use {SMEM_LIMIT}"
-        )
+    code = _CODES[q.dtype]
+    if (device, D, code) not in _SMEM_CHECKED:
+        smem = lib.flash_attention_fwd_smem(D, code)
+        if not 0 < smem <= SMEM_LIMIT:
+            raise ValueError(
+                f"flash_attention_fwd tiles need {smem} bytes of shared memory at head_dim {D} "
+                f"and {q.dtype}; a block may use {SMEM_LIMIT}"
+            )
+        _SMEM_CHECKED.add((device, D, code))
     scale = float(sm_scale) if sm_scale is not None else 1.0 / (D**0.5)
-    with torch.cuda.device(q.device):
-        err = lib.flash_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            lse.data_ptr() if return_lse else None, B, H, KVH, Sq, Skv, D, code, int(bool(causal)),
-            -1 if window is None else int(window), scale,
-            torch.cuda.current_stream(q.device).cuda_stream,
-        )
+    err = lib.flash_attention_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        lse.data_ptr() if return_lse else None, B, H, KVH, Sq, Skv, D, code, int(bool(causal)),
+        -1 if window is None else int(window), scale, torch._C._cuda_getCurrentRawStream(device),
+    )
     if err != 0:
         raise RuntimeError(f"flash_attention_fwd launch failed with CUDA error {err}")
     build.LAUNCHES["flash_attention_fwd"] += 1

@@ -16,8 +16,8 @@ from __future__ import annotations
 
 import argparse
 import json
-import statistics
-import time
+import sys
+from pathlib import Path
 
 import torch
 import torch.nn.functional as F
@@ -25,7 +25,6 @@ import torch.nn.functional as F
 from repro_torch.kernels import build
 from repro_torch.kernels.rmsnorm import rmsnorm_bwd
 
-HBM_BYTES_PER_S = 3.35e12  # the H100 SXM's memory rate
 #: (shape, dtype, where the paths call K3 so)
 SHAPES = [
     ((8, 1024, 2048), "bfloat16", "internlm2 train step"),
@@ -40,48 +39,19 @@ SHAPES = [
 ]
 
 
-def host_us(fn, calls: int = 200) -> float:
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(calls):
-        fn()
-    out = (time.perf_counter() - t0) / calls * 1e6
-    torch.cuda.synchronize()
-    return out
-
-
-def kernel_ms(fn, host: float, flush: torch.Tensor, cycles_per_ms: float, reps: int) -> float:
-    """Median device ms of one call: the card spins for twice the host time plus 0.2 ms
-    before the start event, so the call's launches are queued when it fires."""
-    cycles = int((2 * host / 1e3 + 0.2) * cycles_per_ms)
-    starts = [torch.cuda.Event(enable_timing=True) for _ in range(reps)]
-    ends = [torch.cuda.Event(enable_timing=True) for _ in range(reps)]
-    for s, e in zip(starts, ends):
-        flush.zero_()
-        torch.cuda._sleep(cycles)
-        s.record()
-        fn()
-        e.record()
-    torch.cuda.synchronize()
-    return statistics.median(s.elapsed_time(e) for s, e in zip(starts, ends))
-
-
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--reps", type=int, default=100)
     args = ap.parse_args(argv)
+    # the timer beside this file, whichever checkout's package PYTHONPATH names
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    import devtime
     build.load()
-    for line in build.build_log().split("== rmsnorm.cu")[-1].split("\n== ")[0].splitlines():
-        if "Compiling entry" in line or "registers" in line or "spill" in line:
-            print(line.strip())
+    log = build.build_log().split("== rmsnorm.cu")[-1].split("\n== ")[0]
+    for name, regs, stores, loads in devtime.ptxas_entries(log):
+        print(f"{name}: {regs} registers, {stores} bytes spill stores, {loads} bytes spill loads")
     gen = torch.Generator(device="cuda").manual_seed(0)
-    flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
-    s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    s.record()
-    torch.cuda._sleep(2_000_000)
-    e.record()
-    torch.cuda.synchronize()
-    cycles_per_ms = 2_000_000 / s.elapsed_time(e)
+    cycles_per_ms = devtime.spin_cycles_per_ms()
     for shape, dtype_name, where in SHAPES:
         dtype = getattr(torch, dtype_name)
         x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
@@ -96,11 +66,11 @@ def main(argv=None) -> int:
                             y_lib, (x_lib, w_lib), dy, retain_graph=True))):
             for _ in range(3):
                 fn()
-            host = host_us(fn)
-            out[f"{key}_ms"] = kernel_ms(fn, host, flush, cycles_per_ms, args.reps)
+            host = devtime.host_us(fn)
+            out[f"{key}_ms"] = devtime.kernel_ms(fn, host, args.reps, cycles_per_ms)
             out[f"{key}_host_us"] = host
         nbytes = 3 * x.numel() * x.element_size() + 2 * shape[-1] * 4
-        out["bound_ms"] = nbytes / HBM_BYTES_PER_S * 1e3
+        out["bound_ms"] = nbytes / devtime.HBM_BYTES_PER_S * 1e3
         out["k3_share_of_bound"] = out["bound_ms"] / out["k3_ms"]
         print(json.dumps(out))
     print(json.dumps({"device": torch.cuda.get_device_name(0)}))

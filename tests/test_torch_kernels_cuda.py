@@ -17,7 +17,10 @@ tensor cores) is also held at the main paths' geometries and ragged edges
 at head_dim 64 and of llama-3.2-vision-11b) against the twin of its rounding points,
 ``ref.flash_attention_fwd_tc_twin``, which rounds P to bf16 before P·V as the kernel
 does, and its gradients through the chunked backward against plain autograd in bf16
-at the bf16 tolerance; its f32 cases run the SIMT kernel.  For the SSD scan
+at the bf16 tolerance; its f32 cases run the SIMT kernel, whose output and lse tests
+also take (``SIMT_CASES``, f32 only) the main paths' f32 shapes, every head_dim at
+GQA groups of 1, 4 and 8, windows that cross a KV tile and ragged shapes.  Two K4
+calls on the same inputs are bitwise equal.  For the SSD scan
 (K5) the cases of ``tests/kernels/test_ssd_scan.py``, a ragged sequence, the
 mamba2-reduced shape and the serving shapes of mamba2-370m (32 heads) and the Jamba
 block (128 heads).  Tolerances: 2e-5 in f32
@@ -80,6 +83,37 @@ FA_CASES = {
     "cross_sq_ne_skv": (2, 4, 4, 64, 128, 32, False, None, 32, 64),
     "head_dim_128": (1, 2, 1, 64, 64, 128, True, None, 32, 32),
 }
+
+
+# K4's f32 path (the register-blocked SIMT kernel) at the main paths' shapes and its
+# edges, in f32 only, name: (B, H, KVH, Sq, Skv, D, causal, window): train_e2e's local
+# and global layers, a 1x2 rank's heads in internlm2's and gemma3-1b's f32 placed
+# prefills, every head_dim at GQA groups of 1, 4 and 8, windows whose edge crosses a KV
+# tile mid-way, Sq != Skv, and Sq and Skv off the query and KV tiles (every row sees a
+# column).
+SIMT_CASES = {
+    "train_e2e_local_window256": (8, 8, 2, 256, 256, 64, True, 256),
+    "train_e2e_global_causal": (8, 8, 2, 256, 256, 64, True, None),
+    "internlm2_placed_1x2_rank": (4, 8, 4, 1024, 1024, 128, True, None),
+    "gemma3_placed_1x2_rank_window512": (4, 2, 1, 1024, 1024, 256, True, 512),
+    "hd16_gqa8_ragged_causal": (2, 8, 1, 77, 77, 16, True, None),
+    "hd32_gqa4_window40": (1, 8, 2, 300, 300, 32, True, 40),
+    "hd64_gqa1_sq_ne_skv": (2, 4, 4, 100, 230, 64, False, None),
+    "hd128_gqa8_window40": (1, 8, 1, 333, 333, 128, True, 40),
+    "hd128_gqa1_ragged_cross": (2, 4, 4, 70, 150, 128, False, None),
+    "hd256_gqa4_ragged_causal": (1, 4, 1, 130, 200, 256, True, None),
+    "hd256_gqa1_window48": (2, 2, 2, 150, 150, 256, True, 48),
+}
+
+
+# the K4 cases of the tests below: FA_CASES in both dtypes, SIMT_CASES in f32
+FA_DTYPE_CASES = [(c, d) for c in sorted(FA_CASES) for d in DTYPES] + [
+    (c, "float32") for c in sorted(SIMT_CASES)]
+
+
+def fa_case(case):
+    """(B, H, KVH, Sq, Skv, D, causal, window) of a K4 case."""
+    return FA_CASES[case][:8] if case in FA_CASES else SIMT_CASES[case]
 
 
 # name: (Bt, S, H, P, G, N): the shapes of tests/kernels/test_ssd_scan.py (chunk
@@ -153,10 +187,9 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("case", sorted(FA_CASES))
+@pytest.mark.parametrize("case,dtype", FA_DTYPE_CASES)
 def test_flash_attention_kernel_matches_plain(cuda, case, dtype):
-    B, H, KVH, Sq, Skv, D, causal, window, _, _ = FA_CASES[case]
+    B, H, KVH, Sq, Skv, D, causal, window = fa_case(case)
     q, k, v = (
         torch.from_numpy(a).to(cuda, DTYPES[dtype]) for a in make_qkv(3, B, H, KVH, Sq, Skv, D)
     )
@@ -330,12 +363,12 @@ def test_rmsnorm_bwd_kernel_is_deterministic(cuda, dtype, shape):
         assert torch.equal(again[0], first[0]) and torch.equal(again[1], first[1])
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("case", sorted(FA_CASES))
+@pytest.mark.parametrize("case,dtype", FA_DTYPE_CASES)
 def test_flash_attention_kernel_lse_matches_chunked_twin(cuda, case, dtype):
     """K4's logsumexp on every row with a visible column (all rows of these cases;
-    a fully masked row would hold -1e30 here and log(columns) in the twin)."""
-    B, H, KVH, Sq, Skv, D, causal, window, _, _ = FA_CASES[case]
+    a fully masked row would hold -1e30 here and log(columns) in the twin); two calls
+    on the same inputs are bitwise equal."""
+    B, H, KVH, Sq, Skv, D, causal, window = fa_case(case)
     q, k, v = (
         torch.from_numpy(a).to(cuda, DTYPES[dtype]) for a in make_qkv(5, B, H, KVH, Sq, Skv, D)
     )
@@ -351,6 +384,8 @@ def test_flash_attention_kernel_lse_matches_chunked_twin(cuda, case, dtype):
     np.testing.assert_array_equal(
         f32(flash_attention_fwd(q, k, v, causal=causal, window=window)), f32(o)
     )
+    o2, lse2 = flash_attention_fwd(q, k, v, causal=causal, window=window, return_lse=True)
+    assert torch.equal(o2, o) and torch.equal(lse2, lse)
 
 
 @pytest.mark.parametrize("case", sorted(FA_CASES))
