@@ -9,8 +9,9 @@ Drives ``repro_torch`` only (never ``repro`` or ``jax``), on one CUDA device:
 2. builds the hand-written kernels from ``src/repro_torch/csrc`` with nvcc, and
    prints ptxas's registers and spills of K4's tensor-core instantiations (bf16,
    head_dim 128 and 256), of its five f32 SIMT instantiations (head_dim 16 to 256),
-   of K2, of K3's main kernel and of K5's five kernels (its three passes in bf16 and
-   f32; none of K3's, K4's or K5's may spill), and, where ``cuobjdump`` is installed,
+   of K2's four kernels (its routes), of K3's main kernel and of K5's five kernels (its
+   three passes in bf16 and f32; none of them may spill), and, where ``cuobjdump`` is
+   installed,
    the HMMA instructions of K5's bf16 passes (there must be some) and the FFMA and
    tensor-core instructions of K4's f32 kernel (FFMA only: no HMMA, no HGMMA);
 3. holds each kernel against its plain PyTorch version on the card, at the test
@@ -19,7 +20,9 @@ Drives ``repro_torch`` only (never ``repro`` or ``jax``), on one CUDA device:
    1024, and ragged Sq, Skv at head_dim 128 and 256; the f32 kernel also at the main
    paths' shapes, every head_dim at GQA groups of 1, 4 and 8, windows that cross a KV
    tile and ragged Sq != Skv, untimed, its lse against the chunked twin and two calls
-   bitwise equal; K2 also at a width of 100) and
+   bitwise equal; K2 also at a width of 100, and forced onto each of its four routes at
+   widths they take, a ragged width and rows off a 16-byte boundary, two calls bitwise
+   equal) and
    at the shapes of the gemma3-1b serving path, and times the kernel, the plain
    version and one PyTorch library call that computes the same function (a yardstick
    the port never calls), with K4's achieved TFLOP/s and share of its bound.  Every
@@ -90,7 +93,8 @@ Drives ``repro_torch`` only (never ``repro`` or ``jax``), on one CUDA device:
     head_dim 64; llama-3.2-vision-11b's causal GQA self-attention and its GQA
     cross-attention over 1600 image tokens); K2 at whisper's width 1024, vision's and
     Jamba's 4096 (the widest row of the warp-per-row kernel) and Jamba's gate norm over
-    8192 (the block-per-row kernel), prefill and decode rows; and K5 at the Jamba
+    8192 (route 1, a block a row), prefill and decode rows, each with the route it
+    took; and K5 at the Jamba
     block's 128 SSM heads against the stepwise recurrence; each timed three ways beside
     its library call (SDPA, ``F.rms_norm``) and its bound;
 22. checks the reduced configs of the five MoE, cross-attention and encoder-decoder
@@ -99,13 +103,17 @@ Drives ``repro_torch`` only (never ``repro`` or ``jax``), on one CUDA device:
 23. serves whisper-medium at full width in bf16 (random weights from a seed): batch 4,
     1500 encoder frames, prompt 416, 32 greedy tokens, through
     ``repro_torch.launch.serve``, with exactly 72 K4 and 122 K2 launches a prefill and
-    73 K2 a decode step; then the same prefill with the plain versions, in bf16 and
+    73 K2 a decode step, and K2's launches by route (a prefill's on the warp-per-row
+    kernel but for the last position's final norm, a step's on route 1); then the same
+    prefill with the plain versions, in bf16 and
     with the same weights widened to f32;
 24. the same for llama-3.2-vision-11b (1600 image tokens, prompt 1024): 48 K4 and 89
     K2 a prefill, 89 K2 a decode step; its bf16 weights are freed as they are widened;
 25. the same for one Jamba block (8 of jamba-v0.1-52b's 32 layers: the whole model
     does not fit on one card) at prompt 1024: 1 K4, 21 K5 (7 calls of 3 passes) and
-    24 K2 a prefill, 24 K2 a decode step, and the share of (token, k) routing choices
+    24 K2 a prefill (16 warp-per-row; on route 1 the 7 Mamba gate norms of 8192 and the
+    final norm of the last position's 4 rows), 24 K2 a decode step (all on route 1), and
+    the share of (token, k) routing choices
     on which the kernels and the plain versions agree (bounded in bf16 and in f32),
     beside the spread of two plain versions with no kernel between them; its f32
     comparison runs on the block's first 4 layers.  The bf16 logit bound of this path
@@ -577,8 +585,9 @@ XATTN_CASES = {
 }
 # K2's bf16 rows on this slice's paths (phase 21): whisper's D 1024 (the encoder's 1500
 # frames, the decoder's 416-token prompt), vision's and the Jamba block's D 4096 (the
-# widest row of the warp-per-row kernel), the Jamba gate norm over d_inner 8192 (the
-# block-per-row kernel), and a decode step's rows at each width
+# widest row of the warp-per-row kernel), the Jamba gate norm over d_inner 8192 (route
+# 1, a block a row), and a decode step's rows at each width (route 1: fewer rows than
+# three quarters of the SMs)
 RMS_XA_CASES = {
     "whisper encoder": (4, 1500, 1024),
     "whisper decoder": (4, 416, 1024),
@@ -587,6 +596,16 @@ RMS_XA_CASES = {
     "vision / Jamba decode": (4, 1, 4096),
     "Jamba gate norm": (4, 1024, 8192),
     "Jamba gate norm decode": (4, 1, 8192),
+}
+# K2's routes forced at (rows, D) (phase 3, both dtypes, untimed): all four at a decode
+# step's rows of 1024 and at a width off the vector (100), the three wide ones at many rows of 8192 and at a ragged width,
+# route 2 and the streamed route at few rows of 16384 (wider than route 1 holds)
+K2_ROUTE_CASES = {
+    (4, 1024): ("warp-per-row", "row-per-block", "cluster-split", "row-per-block-streamed"),
+    (64, 100): ("warp-per-row", "row-per-block", "cluster-split", "row-per-block-streamed"),
+    (300, 8192): ("row-per-block", "cluster-split", "row-per-block-streamed"),
+    (16, 5000): ("row-per-block", "cluster-split", "row-per-block-streamed"),
+    (4, 16384): ("cluster-split", "row-per-block-streamed"),
 }
 # (Bt, S, H, P, G, N): K5 at the Jamba block's serving shape (128 SSM heads)
 SSD_JAMBA = (4, 1024, 128, 64, 1, 128)
@@ -1014,6 +1033,7 @@ def xattn_moe_phases(torch, dev, card: str) -> dict:
     and decode."""
     from repro_torch.configs import DEC_CONTEXT, ENC_FRAMES, get_config
     from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels.build import K2_ROUTES
     from repro_torch.launch.serve import make_requests, serve_decode, serve_prefill
     from repro_torch.models import init_params
     from repro_torch.tree import leaves, map_leaves
@@ -1073,10 +1093,11 @@ def xattn_moe_phases(torch, dev, card: str) -> dict:
         assert diff <= rel_bound * scale, (label, diff, scale)
         assert gap <= rel_bound * scale, (label, gap, scale)
 
-    def serve_path(tag, cfg, prompt_len, want_prefill, want_step, bf16_bound, *,
+    def serve_path(tag, cfg, prompt_len, want_prefill, want_step, bf16_bound, want_routes, *,
                    f32_layers=None, note=""):
         """Serve ``cfg`` at full width in bf16 through repro_torch.launch.serve, with the
-        launches of the prefill and of every decode step asserted exactly; then the
+        launches of the prefill and of every decode step asserted exactly, and K2's
+        launches by route (``want_routes``: the prefill's and a step's); then the
         same prefill with the plain versions, in bf16 and with the weights widened to
         f32 (on the first ``f32_layers`` layers when given).  Returns the launches of
         the prefill and the decode steps together."""
@@ -1104,19 +1125,21 @@ def xattn_moe_phases(torch, dev, card: str) -> dict:
         logits, caches = serve_prefill(cfg, params, prompts, max_len, batch_extras=extras)
         torch.cuda.synchronize()
         t_prefill = time.monotonic() - t0
-        prefill_counts = dict(LAUNCHES)
+        prefill_counts, prefill_routes = dict(LAUNCHES), dict(K2_ROUTES)
         reset_launches()
-        step_counts, step_logits, fed = [], [], []
+        step_counts, step_routes, step_logits, fed = [], [], [], []
         lg = logits
         t1 = time.monotonic()
         for i in range(XA_GEN):  # serve_decode one step at a time, to count each step
-            before = dict(LAUNCHES)
+            before, before_routes = dict(LAUNCHES), dict(K2_ROUTES)
             tok, kept = serve_decode(cfg, params, lg, caches, prompt_len + i, 1,
                                      keep_logits=True)
             lg = kept[0]
             fed.append(tok)
             step_logits.append(lg)
             step_counts.append({n: LAUNCHES[n] - before[n] for n in LAUNCHES})
+            step_routes.append({r: n - before_routes.get(r, 0) for r, n in K2_ROUTES.items()
+                                if n != before_routes.get(r, 0)})
         torch.cuda.synchronize()
         t_decode = time.monotonic() - t1
         decode_counts = dict(LAUNCHES)
@@ -1126,10 +1149,13 @@ def xattn_moe_phases(torch, dev, card: str) -> dict:
             f"tok/s, {t_decode / XA_GEN * 1e3:.2f} ms/step); peak memory "
             f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
         say(f"[{tag}] launches: prefill {prefill_counts}; decode {decode_counts} over "
-            f"{XA_GEN} steps")
+            f"{XA_GEN} steps; K2 by route: prefill {prefill_routes}, a decode step "
+            f"{step_routes[0]}")
         none = {n: 0 for n in LAUNCHES}
         assert prefill_counts == {**none, **want_prefill}, (tag, prefill_counts)
         assert all(c == {**none, **want_step} for c in step_counts), (tag, step_counts)
+        assert prefill_routes == want_routes[0], (tag, prefill_routes)
+        assert all(r == want_routes[1] for r in step_routes), (tag, step_routes)
         assert logits.shape == (XA_B, cfg.vocab) and tokens.shape == (XA_B, XA_GEN)
         assert bool(torch.isfinite(logits).all()), "non-finite prefill logits"
         assert all(bool(torch.isfinite(x).all()) for x in step_logits), "non-finite decode"
@@ -1176,23 +1202,31 @@ def xattn_moe_phases(torch, dev, card: str) -> dict:
     counts = {}
     # -- 23. whisper-medium: 24 encoder + 24 decoder layers, cross-attention on each ----
     # K4: 24 encoder (non-causal), 24 decoder (causal), 24 cross; K2: 2 x 24 + 1 in the
-    # encoder, 3 x 24 + 1 in the decoder, and 3 x 24 + 1 a decode step
+    # encoder, 3 x 24 + 1 in the decoder, and 3 x 24 + 1 a decode step.  K2's routes:
+    # a prefill's rows (thousands) take the warp-per-row kernel, but for the final norm
+    # of the last position's 4 rows, which takes route 1, as a step's 4 rows all do
     counts["serve_whisper"] = serve_path(
         "serve-whisper", get_config("whisper-medium"), DEC_CONTEXT - XA_GEN,
         {"flash_attention_fwd": 72, "rmsnorm_fwd": 122}, {"rmsnorm_fwd": 73},
-        XA_BF16_REL_BOUND, note=f"; {ENC_FRAMES} encoder frames (30 s at 50 Hz)")
+        XA_BF16_REL_BOUND, ({"warp-per-row": 121, "row-per-block": 1}, {"row-per-block": 73}),
+        note=f"; {ENC_FRAMES} encoder frames (30 s at 50 Hz)")
     # -- 24. llama-3.2-vision-11b: 40 layers, cross-attention on 8 --------------------
     counts["serve_vision"] = serve_path(
         "serve-vision", get_config("llama-3.2-vision-11b"), XA_PROMPT,
         {"flash_attention_fwd": 48, "rmsnorm_fwd": 89}, {"rmsnorm_fwd": 89},
-        XA_BF16_REL_BOUND)
+        XA_BF16_REL_BOUND, ({"warp-per-row": 88, "row-per-block": 1}, {"row-per-block": 89}))
     # -- 25. one Jamba block: 7 Mamba-2 layers, attention at index 3, MoE on the odd -----
     from repro_torch.kernels.ssd_scan import LAUNCHES_PER_CALL as SSD_LAUNCHES
     jamba = dataclasses.replace(get_config("jamba-v0.1-52b"), n_layers=JAMBA_LAYERS)
     counts["serve_jamba"] = serve_path(
         "serve-jamba", jamba, XA_PROMPT,
         {"flash_attention_fwd": 1, "ssd_scan_fwd": 7 * SSD_LAUNCHES, "rmsnorm_fwd": 24},
-        {"rmsnorm_fwd": 24}, JAMBA_BF16_REL_BOUND, f32_layers=JAMBA_F32_LAYERS,
+        {"rmsnorm_fwd": 24}, JAMBA_BF16_REL_BOUND,
+        # 17 norms of 4096 and the 7 Mamba gate norms of 8192: a prefill's 4096 rows
+        # take the warp-per-row kernel and route 1, the final norm's and a step's 4 rows
+        # route 1
+        ({"warp-per-row": 16, "row-per-block": 8}, {"row-per-block": 24}),
+        f32_layers=JAMBA_F32_LAYERS,
         note=f"; depth cut to {JAMBA_LAYERS} of 32 layers, one whole Jamba block (52B in "
              f"bf16, ~104 GB, does not fit on one card)")
     return counts
@@ -2601,7 +2635,8 @@ def main() -> int:
     from repro_torch.distributed import make_train_state_fn, make_train_step
     from repro_torch.kernels import LAUNCHES, build, ops, ref, reset_launches
     from repro_torch.kernels.flash_attention import flash_attention_fwd
-    from repro_torch.kernels.rmsnorm import rmsnorm_bwd, rmsnorm_fwd
+    from repro_torch.kernels.rmsnorm import rmsnorm_bwd, rmsnorm_fwd, rmsnorm_fwd_on
+    from repro_torch.kernels.rmsnorm import route as k2_route
     from repro_torch.kernels.ssd_scan import LAUNCHES_PER_CALL as SSD_LAUNCHES
     from repro_torch.kernels.ssd_scan import plan as ssd_plan
     from repro_torch.kernels.ssd_scan import ssd_scan_fwd
@@ -2640,6 +2675,9 @@ def main() -> int:
                "fa_fwd_tc_kernelILi256E": "K4 tensor-core bf16, head_dim 256",
                **FA_SIMT_ENTRIES,
                "rmsnorm_fwd_kernel": "K2 warp-per-row",
+               "rmsnorm_fwd_row_kernel": "K2 row-per-block (route 1)",
+               "rmsnorm_fwd_stream_kernel": "K2 row-per-block streamed",
+               "rmsnorm_fwd_cluster_kernel": "K2 cluster-split (route 2)",
                "rmsnorm_bwd_kernel": "K3 main kernel",
                **SSD_ENTRIES}
     seen = set()
@@ -2650,8 +2688,7 @@ def main() -> int:
                 say(f"[build] {label} ({entry[-60:]}): {regs} registers at entry"
                     f"{' (setmaxnreg: consumers 240, producer 24)' if 'fa_fwd_tc' in key else ''}"
                     f", {spill_st} bytes spill stores, {spill_ld} bytes spill loads")
-                if key != "rmsnorm_fwd_kernel":  # K3's, K4's tensor-core and K5's
-                    assert spill_st == spill_ld == 0, (entry, spill_st, spill_ld)
+                assert spill_st == spill_ld == 0, (entry, spill_st, spill_ld)
     assert seen == set(watched), f"the build log names no {set(watched) - seen}"
     hmma = sass_counts(build.library_path(), "HMMA", [k for k in SSD_ENTRIES if "_tc" in k])
     if hmma is None:
@@ -2686,7 +2723,9 @@ def main() -> int:
         return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
 
     def rms_case(x, w):
-        """K2 against its plain version: error, kernel / plain / F.rms_norm times, bound."""
+        """K2 against its plain version: error, kernel / plain / F.rms_norm times, bound,
+        and the route the dispatch took."""
+        taken = k2_route(x)
         err = check(rmsnorm_fwd(x, w), ref.rmsnorm_ref(x, w), dtype_name(x))
         w_lib = w.to(x.dtype)  # F.rms_norm wants the weight in x's dtype
         bound_ms, bound_by = bound(
@@ -2697,10 +2736,20 @@ def main() -> int:
         rec = record("rmsnorm_fwd", "cuda", "src/repro_torch/csrc/rmsnorm.cu",
                      "src/repro/kernels/rmsnorm.py:41", err, kern,
                      time_ms(torch, lambda: ref.rmsnorm_ref(x, w)), bound_ms, bound_by, lib)
-        say(f"[kernels] rmsnorm_fwd {dtype_name(x)} x{tuple(x.shape)}: max_abs_err {err:.3e} "
-            f"{fmt(kern)} plain_ms {rec['plain_ms']:.4f}; F.rms_norm {fmt(lib)}; bound_ms "
-            f"{bound_ms:.6f} ({bound_by}), {bound_ms / kern['kernel_ms']:.1%} of it")
-        return rec
+        say(f"[kernels] rmsnorm_fwd {dtype_name(x)} x{tuple(x.shape)} ({taken}): max_abs_err "
+            f"{err:.3e} {fmt(kern)} plain_ms {rec['plain_ms']:.4f}; F.rms_norm {fmt(lib)}; "
+            f"bound_ms {bound_ms:.6f} ({bound_by}), {bound_ms / kern['kernel_ms']:.1%} of it")
+        return {**rec, "k2_route": taken}
+
+    def rms_route_case(x, w, r):
+        """K2 forced onto route ``r`` against its plain version, and two calls bitwise
+        equal (untimed)."""
+        got = rmsnorm_fwd_on(x, w, r)
+        err = check(got, ref.rmsnorm_ref(x, w), dtype_name(x))
+        assert torch.equal(rmsnorm_fwd_on(x, w, r), got), (r, tuple(x.shape))
+        say(f"[kernels] rmsnorm_fwd {dtype_name(x)} x{tuple(x.shape)} on route {r}"
+            f"{'' if x.data_ptr() % 16 == 0 else ' (off a 16-byte boundary)'}: max_abs_err "
+            f"{err:.3e}, two calls bitwise equal")
 
     def negative_control(x, w):
         """The timer's negative control: the same K2 call with 0.5 ms of host sleep in
@@ -2997,6 +3046,14 @@ def main() -> int:
             fa_case(q, k, v, causal, window)
         for shape in ((2, 256, 64), (120, 96), (64, 100)):  # 100: no multiple of a vector
             rms_case(randn(*shape, dtype=dtype), 1 + 0.1 * randn(shape[-1]))
+        # every K2 route at a width it takes, a ragged one, and rows off a 16-byte boundary
+        for (rows, D_), routes in K2_ROUTE_CASES.items():
+            x_, w_ = randn(rows, D_, dtype=dtype), 1 + 0.1 * randn(D_)
+            for r in routes:
+                rms_route_case(x_, w_, r)
+        x_ = randn(16 * 8192 + 1, dtype=dtype)[1:].view(16, 8192)
+        for r in ("row-per-block", "cluster-split", "row-per-block-streamed"):
+            rms_route_case(x_, 1 + 0.1 * randn(8192), r)
     for B, H, KVH, Sq, Skv, D, causal, window in FA_TC_CASES:
         fa_case(randn(B, H, Sq, D, dtype=torch.bfloat16), randn(B, KVH, Skv, D, dtype=torch.bfloat16),
                 randn(B, KVH, Skv, D, dtype=torch.bfloat16), causal, window)
@@ -3511,7 +3568,7 @@ def main() -> int:
         rec = rms_case(randn(*shape, dtype=torch.bfloat16), 1 + 0.1 * randn(shape[-1]))
         rms_rows.append({"shape": f"{label} {shape}", **{key: rec[key] for key in (
             "max_abs_err", "ms", "call_ms", "host_us", "plain_ms", "bound_ms", "bound_by",
-            "library_ms")}})
+            "library_ms", "k2_route")}})
     records["rmsnorm_fwd"]["at_shapes"] = rms_rows
     jrec = ssd_case(*ssd_inputs(*SSD_JAMBA, torch.bfloat16), timed=True)
     records["ssd_scan_fwd"]["at_shapes"] = [{"shape": "Jamba block, 128 SSM heads", **{

@@ -6,19 +6,39 @@
 //
 // Bound on the H100: bytes.  A row of D values does 3 operations per value and
 // moves 2 (bf16) or 4 (f32) bytes in and out, far below the ~295 operations per
-// byte at which the card turns compute-bound.  So the design moves each byte once,
-// in wide transactions, and spends nothing on synchronisation: one warp per row,
-// 4 rows to a block, so a row's sum of squares is a warp-shuffle reduction with no
-// __syncthreads.  Each lane loads its columns in 16-byte vectors (8 bf16 or 4 f32),
-// lane-interleaved so that a warp reads 512 contiguous bytes per step, and keeps
-// them in registers from the sum of squares to the scaling: the row is read from
-// device memory once.  w is read as float4.  A row whose width is not a multiple of
-// the vector, or whose base is not 16-byte aligned, takes scalar loads in the same
-// kernel.  Rows wider than the registers hold (4096 columns) go to a block-per-row
-// kernel (rmsnorm_fwd_wide_kernel), which re-reads the row from L1/L2 in a second
-// pass.  The
-// statistics are computed in f32 and the output is rounded to x's dtype, as the
-// reference does.
+// byte at which the card turns compute-bound.  So every route moves each byte once,
+// in 16-byte vectors (8 bf16 or 4 f32), lane-interleaved so that a warp reads 512
+// contiguous bytes per step, and keeps them raw in registers from the sum of squares
+// to the scaling: the row is read from device memory once.  w is read as float4.  A
+// row whose width is not a multiple of the vector, or whose base is not 16-byte
+// aligned, takes masked scalar loads and stores in the same kernel (the `vec` flag).
+// The statistics are computed in f32 and the output is rounded to x's dtype, as the
+// reference does.  Four routes (fwd_route chooses; rmsnorm_fwd returns which):
+//   - warp-per-row (rmsnorm_fwd_kernel), many rows of up to 4096 values (kWarpRowMax),
+//     and few rows that one vector a lane covers:
+//     a warp a row, 4 rows a block, the sum a warp shuffle with no __syncthreads.
+//   - row-per-block, route 1 (rmsnorm_fwd_row_kernel), rows of 4097 to 8192 values
+//     (kRowMax), and a decode step's few rows of up to 8192 that are wider than one
+//     vector a lane (256 bf16 or 128 f32 values): 256 threads a row, 4 bf16
+//     or 8 f32 vectors a thread, on a persistent grid whose blocks walk the rows with the
+//     next row's loads in flight; w stays in registers for all of a block's rows.
+//   - cluster-split, route 2 (rmsnorm_fwd_cluster_kernel), few rows wider than 8192, up
+//     to 65536 bf16 or 32768 f32 values: a row over a cluster of up to 8 blocks (the
+//     portable limit), the blocks' partial sums exchanged through distributed shared
+//     memory and added in one fixed order.
+//   - row-per-block streamed (rmsnorm_fwd_stream_kernel), many rows wider than 8192,
+//     and any width: route 1's block and grid, the row read twice in 16-byte vectors
+//     (the second time from L2).
+// "Few" is fewer rows than three quarters of the SMs (few_rows).  There a row to a
+// block leaves most SMs idle and a call takes about one round trip to memory: route 1
+// issues its x and w loads together and reaches it, where the warp-per-row kernel
+// walks a lane's vectors and then w's; a row one vector a lane covers stays on the
+// warp-per-row kernel, faster there by its missing block barrier.  A cluster launch
+// costs the card ~0.8 us more than a plain one (measured: the same one-block kernel
+// launched both ways), more than one SM's transfer of a row of 8192, so route 2 pays
+// only for rows route 1 would have to stream.  The grid cannot overflow: rows are at
+// most 2^31 - 1 (rmsnorm_fwd), route 1's grids are persistent, and route 2 takes fewer
+// rows than the SMs.
 //
 // Backward (K3), with r = rsqrt(mean(x^2) + eps):
 //   dx = r*dy*w - x*r^3*mean(dy*w*x)      (in x's dtype)
@@ -61,49 +81,6 @@
 
 namespace repro_torch {
 namespace {
-
-constexpr int kThreads = 128;
-
-__device__ __forceinline__ float block_sum(float v) {
-  __shared__ float partial[32];
-  __shared__ float total;
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  if (lane == 0) partial[warp] = v;
-  __syncthreads();
-  if (warp == 0) {
-    const int n_warps = (blockDim.x + 31) >> 5;
-    v = lane < n_warps ? partial[lane] : 0.f;
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-    if (lane == 0) total = v;
-  }
-  __syncthreads();
-  return total;
-}
-
-// K2 for rows wider than kWarpRowMax: one block per row, two passes over it.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    rmsnorm_fwd_wide_kernel(const T* __restrict__ x, const float* __restrict__ w,
-                            T* __restrict__ y, int D, float eps) {
-  const int64_t row = blockIdx.x;
-  const T* xr = x + row * D;
-  T* yr = y + row * D;
-
-  float ss = 0.f;
-  for (int i = threadIdx.x; i < D; i += blockDim.x) {
-    const float v = to_f32(xr[i]);
-    ss += v * v;
-  }
-  ss = block_sum(ss);
-  const float r = rsqrtf(ss / static_cast<float>(D) + eps);
-  for (int i = threadIdx.x; i < D; i += blockDim.x) {
-    yr[i] = from_f32<T>(to_f32(xr[i]) * r * w[i]);
-  }
-}
 
 constexpr int kRowsPerBlock = 4;  // one warp per row
 
@@ -218,9 +195,347 @@ void fwd_launch(const T* x, const float* w, T* y, long long rows, int D, float e
 // widest row the warp-per-row kernel holds in registers: 128 values a lane
 constexpr int kWarpRowMax = 4096;
 
+// ---- K2's routes for rows wider than kWarpRowMax ---------------------------------
+
+// a few rows' vectors, raw, as one value (arrays cannot be assigned)
+template <typename T, int NV>
+struct Vecs {
+  typename Vec16<T>::Raw v[NV];
+};
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
+// Thread t of the N that share a row owns its vectors t + N k (k < NV): columns
+// [(t + N k) * VEC, + VEC), lane-interleaved, so that a warp moves 512 contiguous bytes
+// a step.  16-byte loads where `vec`, else masked scalar loads (zeros past D).
+template <typename T, int NV, int N>
+__device__ __forceinline__ void load_vectors(Vecs<T, NV>& a, const T* __restrict__ xr, int D,
+                                             int t, int vec) {
+  using V = Vec16<T>;
+  constexpr int VEC = V::N;
+#pragma unroll
+  for (int k = 0; k < NV; ++k) {
+    const int col = (t + N * k) * VEC;
+    if (vec && col < D) {
+      a.v[k] = *reinterpret_cast<const typename V::Raw*>(xr + col);
+    } else {
+      float f[VEC];
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) f[e] = col + e < D ? to_f32(xr[col + e]) : 0.f;
+      a.v[k] = V::pack(f);  // exact: the values came from T
+    }
+  }
+}
+
+// w at the same columns, as float4 where `vec` (zeros past D)
+template <int NV, int VEC, int N>
+__device__ __forceinline__ void load_w(float (&wr)[NV][VEC], const float* __restrict__ w, int D,
+                                       int t, int vec) {
+#pragma unroll
+  for (int k = 0; k < NV; ++k) {
+    const int col = (t + N * k) * VEC;
+    if (vec && col < D) {
+#pragma unroll
+      for (int e = 0; e < VEC; e += 4) {
+        const float4 wv = *reinterpret_cast<const float4*>(w + col + e);
+        wr[k][e] = wv.x, wr[k][e + 1] = wv.y, wr[k][e + 2] = wv.z, wr[k][e + 3] = wv.w;
+      }
+    } else {
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) wr[k][e] = col + e < D ? w[col + e] : 0.f;
+    }
+  }
+}
+
+template <typename T, int NV>
+__device__ __forceinline__ float sum_squares(const Vecs<T, NV>& a) {
+  constexpr int VEC = Vec16<T>::N;
+  float ss = 0.f;
+#pragma unroll
+  for (int k = 0; k < NV; ++k) {
+    float f[VEC];
+    Vec16<T>::unpack(a.v[k], f);
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) ss += f[e] * f[e];
+  }
+  return ss;
+}
+
+// y = x * r * w at the thread's columns, stored as load_vectors loaded them
+template <typename T, int NV, int N>
+__device__ __forceinline__ void store_scaled(T* __restrict__ yr, const Vecs<T, NV>& a,
+                                             const float (&wr)[NV][Vec16<T>::N], float r, int D,
+                                             int t, int vec) {
+  using V = Vec16<T>;
+  constexpr int VEC = V::N;
+#pragma unroll
+  for (int k = 0; k < NV; ++k) {
+    const int col = (t + N * k) * VEC;
+    if (col >= D) break;
+    float f[VEC];
+    V::unpack(a.v[k], f);
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) f[e] = f[e] * r * wr[k][e];
+    if (vec) {
+      *reinterpret_cast<typename V::Raw*>(yr + col) = V::pack(f);
+    } else {
+#pragma unroll
+      for (int e = 0; e < VEC; ++e)
+        if (col + e < D) yr[col + e] = from_f32<T>(f[e]);
+    }
+  }
+}
+
+// Route 1, row-per-block: kRowThreads threads a row, each holding NV vectors of it; a
+// persistent grid whose blocks walk the rows with a stride of the grid, the next row's
+// loads issued before the current row's sum.  w at the thread's columns stays in
+// registers for all its rows.  The warps' sums meet in a double-buffered slot, one block
+// barrier a row (a warp writes a slot again only after the next row's barrier, which
+// every warp reaches after reading it), and each thread adds them in warp order.
+constexpr int kRowThreads = 256;
+constexpr int kRowWarps = kRowThreads / 32;
+constexpr int kRowMax = 8192;  // widest row route 1 holds: 4 bf16 or 8 f32 vectors a thread
+
 template <typename T>
-int fwd_dispatch(const void* xp, const void* wp, void* yp, long long rows, int D, float eps,
-                 cudaStream_t s) {
+constexpr int row_vectors() { return kRowMax / (kRowThreads * Vec16<T>::N); }
+
+template <typename T, int NV>
+__global__ void __launch_bounds__(kRowThreads)
+    rmsnorm_fwd_row_kernel(const T* __restrict__ x, const float* __restrict__ w,
+                           T* __restrict__ y, long long rows, int D, float eps, int vec) {
+  constexpr int VEC = Vec16<T>::N;
+  __shared__ float sums[2][kRowWarps];
+  const int t = threadIdx.x, warp = t >> 5, lane = t & 31;
+  long long row = blockIdx.x;
+  Vecs<T, NV> cur;
+  if (row < rows) load_vectors<T, NV, kRowThreads>(cur, x + row * D, D, t, vec);
+  float wr[NV][VEC];
+  load_w<NV, VEC, kRowThreads>(wr, w, D, t, vec);
+  const float d = static_cast<float>(D);
+  int parity = 0;
+  for (; row < rows; row += gridDim.x) {
+    const long long next = row + gridDim.x;
+    Vecs<T, NV> nxt;
+    if (next < rows) load_vectors<T, NV, kRowThreads>(nxt, x + next * D, D, t, vec);
+    float ss = warp_sum(sum_squares(cur));
+    if (lane == 0) sums[parity][warp] = ss;
+    __syncthreads();
+    ss = 0.f;
+#pragma unroll
+    for (int j = 0; j < kRowWarps; ++j) ss += sums[parity][j];
+    parity ^= 1;
+    store_scaled<T, NV, kRowThreads>(y + row * D, cur, wr, rsqrtf(ss / d + eps), D, t, vec);
+    cur = nxt;
+  }
+}
+
+// Route 1 for rows wider than kRowMax: the same block and grid, the row streamed twice
+// in chunks of 4 vectors a thread (the second pass re-reads it, from L2 where it stays),
+// w read as float4 with each chunk.  No width is too wide for it.
+constexpr int kStreamVectors = 4;
+
+template <typename T>
+__global__ void __launch_bounds__(kRowThreads)
+    rmsnorm_fwd_stream_kernel(const T* __restrict__ x, const float* __restrict__ w,
+                              T* __restrict__ y, long long rows, int D, float eps, int vec) {
+  constexpr int VEC = Vec16<T>::N;
+  constexpr int CHUNK = kRowThreads * kStreamVectors * VEC;  // columns
+  __shared__ float sums[2][kRowWarps];
+  const int t = threadIdx.x, warp = t >> 5, lane = t & 31;
+  const float d = static_cast<float>(D);
+  int parity = 0;
+  for (long long row = blockIdx.x; row < rows; row += gridDim.x) {
+    const T* xr = x + row * D;
+    T* yr = y + row * D;
+    float ss = 0.f;
+    for (int c = 0; c < D; c += CHUNK) {
+      Vecs<T, kStreamVectors> a;
+      load_vectors<T, kStreamVectors, kRowThreads>(a, xr + c, D - c, t, vec);
+      ss += sum_squares(a);
+    }
+    ss = warp_sum(ss);
+    if (lane == 0) sums[parity][warp] = ss;
+    __syncthreads();
+    ss = 0.f;
+#pragma unroll
+    for (int j = 0; j < kRowWarps; ++j) ss += sums[parity][j];
+    parity ^= 1;
+    const float r = rsqrtf(ss / d + eps);
+    for (int c = 0; c < D; c += CHUNK) {
+      Vecs<T, kStreamVectors> a;
+      float wr[kStreamVectors][VEC];
+      load_vectors<T, kStreamVectors, kRowThreads>(a, xr + c, D - c, t, vec);
+      load_w<kStreamVectors, VEC, kRowThreads>(wr, w + c, D - c, t, vec);
+      store_scaled<T, kStreamVectors, kRowThreads>(yr + c, a, wr, r, D - c, t, vec);
+    }
+  }
+}
+
+// Route 2, cluster-split: a row over a cluster of C blocks of kClusterThreads, each
+// thread holding NV vectors of it (the C * kClusterThreads threads of a row interleave
+// as route 1's do) and its w, both loads issued at once.  Each warp hands its sum of
+// squares to every block of the cluster (a store to distributed shared memory, lane j
+// to block j), into the slot of its (rank, warp); after one cluster barrier each block
+// adds the row's C * kClusterWarps sums from its own shared memory in one fixed order
+// (lane p adds sums p, p + 32, ..., then a butterfly, whose pairwise sums commute), so
+// every block scales by a bitwise-identical r.  A block stores into a peer only after
+// every block of the cluster has started (a first barrier phase, arrived at when the
+// block starts and waited on after its loads), and reads nothing remote, so it may
+// exit as soon as it has stored.
+constexpr int kClusterThreads = 128;
+constexpr int kClusterWarps = kClusterThreads / 32;
+constexpr int kClusterMax = 8;  // blocks a cluster, the portable limit
+constexpr int kClusterVectors = 8;  // vectors a thread, at most
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
+  return r;
+}
+
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
+}
+
+// stores v at `p` in the shared memory of the cluster's block `rank`
+__device__ __forceinline__ void st_cluster(float* p, uint32_t rank, float v) {
+  const uint32_t local = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  uint32_t remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(remote) : "r"(local), "r"(rank));
+  asm volatile("st.shared::cluster.f32 [%0], %1;" ::"r"(remote), "f"(v) : "memory");
+}
+
+template <typename T, int C, int NV>
+__global__ void __launch_bounds__(kClusterThreads)
+    rmsnorm_fwd_cluster_kernel(const T* __restrict__ x, const float* __restrict__ w,
+                               T* __restrict__ y, int D, float eps, int vec) {
+  constexpr int VEC = Vec16<T>::N;
+  constexpr int N = C * kClusterThreads;  // threads a row
+  constexpr int P = C * kClusterWarps;  // sums a row
+  __shared__ float part[P];
+  cluster_arrive_relaxed();  // this block has started
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const long long row = blockIdx.x / C;
+  const int rank = static_cast<int>(cluster_rank());
+  const int t = rank * kClusterThreads + threadIdx.x;
+  Vecs<T, NV> a;
+  float wr[NV][VEC];
+  load_vectors<T, NV, N>(a, x + row * D, D, t, vec);
+  load_w<NV, VEC, N>(wr, w, D, t, vec);
+  const float ss = warp_sum(sum_squares(a));
+  cluster_wait();  // every block has started: its shared memory takes the sums
+  if (lane < C) st_cluster(&part[rank * kClusterWarps + warp], lane, ss);
+  cluster_arrive();
+  cluster_wait();
+  float s = 0.f;
+#pragma unroll
+  for (int p = lane; p < P; p += 32) s += part[p];
+  s = warp_sum(s);
+  store_scaled<T, NV, N>(y + row * D, a, wr, rsqrtf(s / static_cast<float>(D) + eps), D, t, vec);
+}
+
+// The routes, as rmsnorm_fwd returns them and the wrapper names them
+// (kernels/rmsnorm.py: ROUTES).
+constexpr int kRouteWarp = 0, kRouteRow = 1, kRouteCluster = 2, kRouteStream = 3;
+
+constexpr int kMaxDevices = 64;
+
+int current_device() {
+  int device = 0;
+  return cudaGetDevice(&device) == cudaSuccess ? device : -1;
+}
+
+// SMs of the current device (read once a device)
+int device_sms() {
+  static int sms[kMaxDevices] = {};
+  const int device = current_device();
+  if (device < 0 || device >= kMaxDevices) return 0;
+  if (sms[device] == 0 &&
+      cudaDeviceGetAttribute(&sms[device], cudaDevAttrMultiProcessorCount, device) != cudaSuccess)
+    sms[device] = 0;
+  return sms[device];
+}
+
+// Fewer rows than this (on a card of `sms` SMs) are a decode step's: one row a block
+// leaves most SMs idle, and a call takes about one round trip to memory whatever the
+// route.  Measured on the H100 (PERF.md, PR 25): route 2 beats route 1's streamed
+// kernel up to 99 rows of 16384 and 32768 values and loses from 132; route 1 beats the
+// warp-per-row kernel at every row count up to 528 from 512 values on, and loses to it
+// where one vector a lane covers the row (256 bf16 or 128 f32 values).
+int few_rows(int sms) { return sms - sms / 4; }
+
+// Route 1's persistent grid for `rows` rows: as many blocks of its kernel (the streamed
+// one for NV 0) as the current device holds at once (found once a device), at most one
+// a row; -1 if the device cannot be queried.
+template <typename T, int NV>
+int row_grid(long long rows) {
+  static int per_sm[kMaxDevices] = {};
+  const int device = current_device();
+  if (device < 0 || device >= kMaxDevices) return -1;
+  if (per_sm[device] == 0) {
+    cudaError_t err;
+    if constexpr (NV == 0)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm[device], rmsnorm_fwd_stream_kernel<T>, kRowThreads, 0);
+    else
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm[device], rmsnorm_fwd_row_kernel<T, NV>, kRowThreads, 0);
+    if (err != cudaSuccess) per_sm[device] = 0;
+  }
+  const long long most = static_cast<long long>(device_sms()) * per_sm[device];
+  if (most <= 0) return -1;
+  return static_cast<int>(rows < most ? rows : most);
+}
+
+// route 2's cluster (C blocks) and vectors a thread (NV) for rows of D values of T: the
+// fewest blocks of kClusterThreads that give each thread one vector, up to kClusterMax,
+// then the fewest vectors a thread.  False past kClusterMax * kClusterThreads *
+// kClusterVectors vectors (65536 bf16 or 32768 f32 values).
+template <typename T>
+bool cluster_shape(int D, int& C, int& NV) {
+  const int vectors = (D + Vec16<T>::N - 1) / Vec16<T>::N;
+  C = 1;
+  NV = 1;
+  while (C < kClusterMax && C * kClusterThreads < vectors) C *= 2;
+  while (NV < kClusterVectors && C * kClusterThreads * NV < vectors) NV *= 2;
+  return C * kClusterThreads * NV >= vectors;
+}
+
+template <typename T, int C, int NV>
+cudaError_t cluster_launch(const T* x, const float* w, T* y, long long rows, int D, float eps,
+                           int vec, cudaStream_t s) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(rows * C));
+  cfg.blockDim = dim3(kClusterThreads);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, rmsnorm_fwd_cluster_kernel<T, C, NV>, x, w, y, D, eps, vec);
+}
+
+// Launches K2 for rows of width D on `route`; returns the route, or minus the CUDA error
+// (cudaErrorInvalidValue for a width the route does not take).
+template <typename T>
+int fwd_on_route(const void* xp, const void* wp, void* yp, long long rows, int D, float eps,
+                 int route, cudaStream_t s) {
   const T* x = static_cast<const T*>(xp);
   const float* w = static_cast<const float*>(wp);
   T* y = static_cast<T*>(yp);
@@ -228,24 +543,62 @@ int fwd_dispatch(const void* xp, const void* wp, void* yp, long long rows, int D
   const int vec = D % VEC == 0 && ((reinterpret_cast<uintptr_t>(xp) |
                                     reinterpret_cast<uintptr_t>(wp) |
                                     reinterpret_cast<uintptr_t>(yp)) & 15) == 0;
-  const int per_lane = (D + 32 * VEC - 1) / (32 * VEC);
-  if (D > kWarpRowMax) {
-    if (rows > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-    rmsnorm_fwd_wide_kernel<T><<<static_cast<unsigned>(rows), kThreads, 0, s>>>(x, w, y, D, eps);
-  } else if (per_lane <= 1) {
-    fwd_launch<T, 1>(x, w, y, rows, D, eps, vec, s);
-  } else if (per_lane <= 2) {
-    fwd_launch<T, 2>(x, w, y, rows, D, eps, vec, s);
-  } else if (per_lane <= 4) {
-    fwd_launch<T, 4>(x, w, y, rows, D, eps, vec, s);
-  } else if (per_lane <= 8) {
-    fwd_launch<T, 8>(x, w, y, rows, D, eps, vec, s);
-  } else if (per_lane <= 16) {
-    fwd_launch<T, 16>(x, w, y, rows, D, eps, vec, s);
-  } else if constexpr (VEC == 4) {
-    fwd_launch<T, 32>(x, w, y, rows, D, eps, vec, s);  // f32 rows of 2049 to 4096
+  const int bad = -static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaSuccess;
+  if (route == kRouteWarp) {
+    if (D > kWarpRowMax) return bad;
+    const int per_lane = (D + 32 * VEC - 1) / (32 * VEC);
+    if (per_lane <= 1) {
+      fwd_launch<T, 1>(x, w, y, rows, D, eps, vec, s);
+    } else if (per_lane <= 2) {
+      fwd_launch<T, 2>(x, w, y, rows, D, eps, vec, s);
+    } else if (per_lane <= 4) {
+      fwd_launch<T, 4>(x, w, y, rows, D, eps, vec, s);
+    } else if (per_lane <= 8) {
+      fwd_launch<T, 8>(x, w, y, rows, D, eps, vec, s);
+    } else if (per_lane <= 16) {
+      fwd_launch<T, 16>(x, w, y, rows, D, eps, vec, s);
+    } else if constexpr (VEC == 4) {
+      fwd_launch<T, 32>(x, w, y, rows, D, eps, vec, s);  // f32 rows of 2049 to 4096
+    }
+  } else if (route == kRouteRow) {
+    constexpr int NV = row_vectors<T>();
+    if (D > kRowMax) return bad;
+    const int grid = row_grid<T, NV>(rows);
+    if (grid <= 0) return bad;
+    rmsnorm_fwd_row_kernel<T, NV><<<grid, kRowThreads, 0, s>>>(x, w, y, rows, D, eps, vec);
+  } else if (route == kRouteStream) {
+    const int grid = row_grid<T, 0>(rows);
+    if (grid <= 0) return bad;
+    rmsnorm_fwd_stream_kernel<T><<<grid, kRowThreads, 0, s>>>(x, w, y, rows, D, eps, vec);
+  } else if (route == kRouteCluster) {
+    int C = 0, NV = 0;
+    if (!cluster_shape<T>(D, C, NV) || rows * C > 0x7fffffffLL) return bad;
+    if (C == 1) err = cluster_launch<T, 1, 1>(x, w, y, rows, D, eps, vec, s);
+    else if (C == 2) err = cluster_launch<T, 2, 1>(x, w, y, rows, D, eps, vec, s);
+    else if (C == 4) err = cluster_launch<T, 4, 1>(x, w, y, rows, D, eps, vec, s);
+    else if (NV == 1) err = cluster_launch<T, 8, 1>(x, w, y, rows, D, eps, vec, s);
+    else if (NV == 2) err = cluster_launch<T, 8, 2>(x, w, y, rows, D, eps, vec, s);
+    else if (NV == 4) err = cluster_launch<T, 8, 4>(x, w, y, rows, D, eps, vec, s);
+    else err = cluster_launch<T, 8, 8>(x, w, y, rows, D, eps, vec, s);
+  } else {
+    return bad;
   }
-  return static_cast<int>(cudaGetLastError());
+  if (err == cudaSuccess) err = cudaGetLastError();
+  return err == cudaSuccess ? route : -static_cast<int>(err);
+}
+
+// The route rmsnorm_fwd takes for `rows` rows of D values of T on the current device:
+// the warp-per-row kernel for many rows of up to kWarpRowMax values and for rows one
+// vector a lane covers, route 1 for few wider rows and every row up to kRowMax, route 2
+// for few rows wider than that, route 1 streamed for the rest.
+template <typename T>
+int fwd_route(long long rows, int D) {
+  const bool few = rows < few_rows(device_sms());
+  if (D <= kWarpRowMax) return few && D > 32 * Vec16<T>::N ? kRouteRow : kRouteWarp;
+  if (D <= kRowMax) return kRouteRow;
+  int C = 0, NV = 0;
+  return few && cluster_shape<T>(D, C, NV) ? kRouteCluster : kRouteStream;
 }
 
 constexpr int kBwdWarps = 16;  // warps a block
@@ -592,14 +945,47 @@ extern "C" int rmsnorm_bwd(const void* x, const void* w, const void* dy, void* d
   return bad;
 }
 
-// x, y: (rows, D) contiguous, dtype code `dtype`; w: (D,) f32.  Launches on
-// `stream` and returns cudaGetLastError() (0 when the launch was accepted).
+// x, y: (rows, D) contiguous, dtype code `dtype`; w: (D,) f32.  Launches K2 on `stream`
+// on the route fwd_route chooses.  Returns that route (0 warp-per-row, 1 row-per-block,
+// 2 cluster-split, 3 row-per-block streamed) once the launch was accepted, or minus the
+// CUDA error.
 extern "C" int rmsnorm_fwd(const void* x, const void* w, void* y, long long rows, int D,
                            int dtype, float eps, void* stream) {
   using namespace repro_torch;
-  if (rows <= 0 || rows > 0x7fffffffLL || D <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const int bad = -static_cast<int>(cudaErrorInvalidValue);
+  if (rows <= 0 || rows > 0x7fffffffLL || D <= 0) return bad;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == kFloat32) return fwd_dispatch<float>(x, w, y, rows, D, eps, s);
-  if (dtype == kBFloat16) return fwd_dispatch<__nv_bfloat16>(x, w, y, rows, D, eps, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype == kFloat32)
+    return fwd_on_route<float>(x, w, y, rows, D, eps, fwd_route<float>(rows, D), s);
+  if (dtype == kBFloat16)
+    return fwd_on_route<__nv_bfloat16>(x, w, y, rows, D, eps,
+                                       fwd_route<__nv_bfloat16>(rows, D), s);
+  return bad;
+}
+
+// rmsnorm_fwd on the route given (to time and test each route at any width it takes);
+// minus cudaErrorInvalidValue for a width the route does not take.
+extern "C" int rmsnorm_fwd_on_route(const void* x, const void* w, void* y, long long rows,
+                                    int D, int dtype, float eps, int route, void* stream) {
+  using namespace repro_torch;
+  const int bad = -static_cast<int>(cudaErrorInvalidValue);
+  if (rows <= 0 || rows > 0x7fffffffLL || D <= 0) return bad;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == kFloat32) return fwd_on_route<float>(x, w, y, rows, D, eps, route, s);
+  if (dtype == kBFloat16) return fwd_on_route<__nv_bfloat16>(x, w, y, rows, D, eps, route, s);
+  return bad;
+}
+
+// The route rmsnorm_fwd takes for these rows on the current device, or -1.
+extern "C" int rmsnorm_fwd_route(long long rows, int D, int dtype) {
+  using namespace repro_torch;
+  if (rows <= 0 || rows > 0x7fffffffLL || D <= 0) return -1;
+  if (dtype == kFloat32) return fwd_route<float>(rows, D);
+  if (dtype == kBFloat16) return fwd_route<__nv_bfloat16>(rows, D);
+  return -1;
+}
+
+// Rows below which rmsnorm_fwd takes its few-rows routes on the current device.
+extern "C" int rmsnorm_fwd_few_rows() {
+  return repro_torch::few_rows(repro_torch::device_sms());
 }

@@ -43,6 +43,9 @@ LAUNCHES: dict[str, int] = {
 }
 #: K1 launches since the last :func:`reset_launches`, by generated kernel name.
 FUSED_LAUNCHES: dict[str, int] = {}
+#: K2 launches since the last :func:`reset_launches`, by the route that took them
+#: (``kernels/rmsnorm.py``: ``ROUTES``); they sum to ``LAUNCHES["rmsnorm_fwd"]``.
+K2_ROUTES: dict[str, int] = {}
 
 _LIB: ctypes.CDLL | None = None
 #: Seconds the last build took in this process (None: loaded a cached library).
@@ -53,6 +56,7 @@ def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
     FUSED_LAUNCHES.clear()
+    K2_ROUTES.clear()
 
 
 def sources() -> list[Path]:
@@ -140,6 +144,12 @@ def load() -> ctypes.CDLL:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.rmsnorm_fwd.argtypes = [p, p, p, ctypes.c_longlong, i, i, f, p]
         lib.rmsnorm_fwd.restype = i
+        lib.rmsnorm_fwd_on_route.argtypes = [p, p, p, ctypes.c_longlong, i, i, f, i, p]
+        lib.rmsnorm_fwd_on_route.restype = i
+        lib.rmsnorm_fwd_route.argtypes = [ctypes.c_longlong, i, i]
+        lib.rmsnorm_fwd_route.restype = i
+        lib.rmsnorm_fwd_few_rows.argtypes = []
+        lib.rmsnorm_fwd_few_rows.restype = i
         lib.rmsnorm_bwd.argtypes = [p, p, p, p, p, p, ctypes.c_longlong, i, i, i, f, p]
         lib.rmsnorm_bwd.restype = i
         lib.rmsnorm_bwd_blocks.argtypes = [i, i]

@@ -4,6 +4,14 @@ Ports of ``repro.kernels.rmsnorm.rmsnorm_fwd`` (K2) and ``rmsnorm_bwd`` (K3).  T
 plain PyTorch versions are :func:`repro_torch.kernels.ref.rmsnorm_ref` and
 :func:`repro_torch.kernels.ref.rmsnorm_bwd_ref`; :func:`repro_torch.kernels.ops.rmsnorm`
 chooses between them by device.  Unlike the TPU kernels, any number of rows works.
+
+K2 takes one of four routes (:data:`ROUTES`), chosen in C by the row width and by the
+row count against :func:`few_rows` (three quarters of the card's SMs): a warp per row
+for many rows of up to 4096 values and for rows one 16-byte vector a lane covers; a
+block per row, the row held in registers, for rows of up to 8192 and for few wider rows
+of any such width; a row split over a thread block
+cluster for few rows wider than that; and a block per row streaming its row twice for
+many such rows.
 """
 
 from __future__ import annotations
@@ -14,6 +22,9 @@ from . import build
 
 _DTYPES = {torch.float32: "float32", torch.bfloat16: "bfloat16"}
 _CODES = {t: build.DTYPE_CODES[name] for t, name in _DTYPES.items()}
+
+#: K2's routes, by the code the C side returns (``csrc/rmsnorm.cu``)
+ROUTES = ("warp-per-row", "row-per-block", "cluster-split", "row-per-block-streamed")
 
 
 def check_args(x: torch.Tensor, w: torch.Tensor) -> None:
@@ -48,26 +59,57 @@ def rmsnorm_fwd(x: torch.Tensor, w: torch.Tensor, *, eps: float = 1e-6) -> torch
     the launch is kept lean: the library is held in a module global, and the stream
     is read as a raw handle without entering a device context (unless x lies on
     another device than the current one)."""
+    return _launch(x, w, eps, None)
+
+
+def rmsnorm_fwd_on(x: torch.Tensor, w: torch.Tensor, route: str, *,
+                   eps: float = 1e-6) -> torch.Tensor:
+    """:func:`rmsnorm_fwd` on the route named (one of :data:`ROUTES`), whatever the
+    dispatch would choose, to time and test each route; raises for a width the route
+    does not take."""
+    return _launch(x, w, eps, ROUTES.index(route))
+
+
+def _launch(x: torch.Tensor, w: torch.Tensor, eps: float, route: int | None) -> torch.Tensor:
     check_args(x, w)
     if not x.is_cuda:
         raise ValueError(f"rmsnorm_fwd launches a CUDA kernel; x lies on {x.device}")
     device = x.get_device()
     if device != torch.cuda.current_device():
         with torch.cuda.device(device):
-            return rmsnorm_fwd(x, w, eps=eps)
+            return _launch(x, w, eps, route)
     y = torch.empty_like(x)
     D = x.shape[-1]
     rows = x.numel() // D if D else 0
     if rows == 0:
         return y
-    err = _lib().rmsnorm_fwd(
-        x.data_ptr(), w.data_ptr(), y.data_ptr(), rows, D, _CODES[x.dtype], eps,
-        torch._C._cuda_getCurrentRawStream(device),
-    )
-    if err != 0:
-        raise RuntimeError(f"rmsnorm_fwd launch failed with CUDA error {err}")
+    args = (x.data_ptr(), w.data_ptr(), y.data_ptr(), rows, D, _CODES[x.dtype], eps)
+    stream = torch._C._cuda_getCurrentRawStream(device)
+    took = (_lib().rmsnorm_fwd(*args, stream) if route is None
+            else _lib().rmsnorm_fwd_on_route(*args, route, stream))
+    if took < 0:
+        raise RuntimeError(f"rmsnorm_fwd launch failed with CUDA error {-took}")
     build.LAUNCHES["rmsnorm_fwd"] += 1
+    name = ROUTES[took]
+    build.K2_ROUTES[name] = build.K2_ROUTES.get(name, 0) + 1
     return y
+
+
+def route(x: torch.Tensor) -> str:
+    """The route :func:`rmsnorm_fwd` takes for x on its device (card only)."""
+    D = x.shape[-1]
+    with torch.cuda.device(x.device):
+        code = _lib().rmsnorm_fwd_route(x.numel() // D, D, _CODES[x.dtype])
+    if code < 0:
+        raise ValueError(f"rmsnorm_fwd takes no x {tuple(x.shape)} {x.dtype}")
+    return ROUTES[code]
+
+
+def few_rows(device: int | None = None) -> int:
+    """Rows below which K2 takes its few-rows routes on ``device`` (the current one by
+    default)."""
+    with torch.cuda.device(device if device is not None else torch.cuda.current_device()):
+        return _lib().rmsnorm_fwd_few_rows()
 
 
 def check_bwd_args(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor) -> None:

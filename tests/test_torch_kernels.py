@@ -40,8 +40,10 @@ from test_torch_kernels_cuda import (
     FA_CASES, SSD_CASES, SSD_RAGGED_TC_CASES, extreme_decay_ssd, make_qkv, make_ssd,
 )
 
-# the module (repro_torch.kernels exports the op ssd_scan under the same name)
+# the modules (repro_torch.kernels exports the ops ssd_scan and rmsnorm under the same
+# names)
 tssd = importlib.import_module("repro_torch.kernels.ssd_scan")
+tkrms = importlib.import_module("repro_torch.kernels.rmsnorm")
 
 DTYPES = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.bfloat16)}
 TOL = {"float32": dict(rtol=2e-5, atol=2e-5), "bfloat16": dict(rtol=2e-2, atol=2e-2)}
@@ -66,8 +68,14 @@ def f32(x) -> np.ndarray:
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("shape", [(2, 256, 64), (120, 96), (4, 1, 1152)])
+@pytest.mark.parametrize(
+    "shape",
+    [(2, 256, 64), (120, 96), (4, 1, 1152), (4, 1, 8192), (2, 16, 6144), (3, 5000)],
+)
 def test_rmsnorm_matches_reference(dtype, shape):
+    """The plain version that the CPU runs, at the warp-per-row widths and at the wide
+    routes' (the Jamba gate norm's decode rows, a dry-run arch's width, a ragged one),
+    against the reference's Pallas kernel in interpret mode and its plain reference."""
     rs = np.random.RandomState(0)
     x_np = rs.randn(*shape).astype(np.float32)
     w_np = (1.0 + 0.1 * rs.randn(shape[-1])).astype(np.float32)
@@ -245,6 +253,20 @@ def test_build_raises_without_nvcc(monkeypatch):
     monkeypatch.setattr(build.os.path, "isfile", lambda path: False)
     with pytest.raises(RuntimeError, match="nvcc not found"):
         build.find_nvcc()
+
+
+def test_rmsnorm_route_wrappers_refuse_cpu_tensors_and_unknown_routes():
+    """K2's forced-route wrapper launches a CUDA kernel or raises, as ``rmsnorm_fwd``
+    does; a route it does not know is refused before any launch."""
+    q = torch.zeros(4, 1024)
+    assert tkrms.ROUTES == (
+        "warp-per-row", "row-per-block", "cluster-split", "row-per-block-streamed"
+    )
+    for r in tkrms.ROUTES:
+        with pytest.raises(ValueError, match="CUDA kernel"):
+            tkrms.rmsnorm_fwd_on(q, torch.ones(1024), r)
+    with pytest.raises(ValueError):
+        tkrms.rmsnorm_fwd_on(q, torch.ones(1024), "block-per-row")
 
 
 def test_library_name_follows_the_sources(tmp_path, monkeypatch):

@@ -8,8 +8,11 @@ Without a CUDA device every test skips.  The shapes are the cases of
 ``tests/kernels/test_flash_attention.py`` (shared with ``test_torch_kernels.py``),
 ragged edges the TPU kernel's tiling could not take, and the rmsnorm shapes of
 the gemma3-1b serving path and the internlm2-1.8b training path (K2 also at a width
-that is no multiple of its 16-byte vector, a single row, a row wider than its
-warp-per-row kernel holds, and rows off a 16-byte boundary; K3 likewise, at the widest
+that is no multiple of its 16-byte vector, a single row, rows wider than its
+warp-per-row kernel holds (the Jamba gate norm's 8192, the dry run's archs' 6144 and
+7168, and wider than its route 1 holds), and rows off a 16-byte boundary; its routes
+on either side of the row count where the dispatch turns, and each route forced, two
+calls bitwise equal; K3 likewise, at the widest
 rows of 8192, with fewer rows than its persistent grid has blocks, and with two calls
 bitwise equal, its dw summed in a fixed order).  K4's bf16 kernel (the
 tensor cores) is also held at the main paths' geometries and ragged edges
@@ -54,8 +57,10 @@ from repro_torch.kernels.rmsnorm import rmsnorm_bwd, rmsnorm_fwd
 from repro_torch.kernels.ssd_scan import ssd_scan_fwd
 from repro_torch.models import model as tmodel
 
-# the module (repro_torch.kernels exports the op ssd_scan under the same name)
+# the modules (repro_torch.kernels exports the ops ssd_scan and rmsnorm under the same
+# names)
 tssd = importlib.import_module("repro_torch.kernels.ssd_scan")
+tkrms = importlib.import_module("repro_torch.kernels.rmsnorm")
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 TOL = {"float32": dict(rtol=2e-5, atol=2e-5), "bfloat16": dict(rtol=2e-2, atol=2e-2)}
@@ -212,19 +217,42 @@ def test_flash_attention_kernel_ragged_edges(cuda, dtype, Sq, Skv, D):
         np.testing.assert_allclose(f32(got), f32(want), **TOL[dtype])
 
 
+def rms_inputs(seed, rows, D, dtype, device, offset=0):
+    """x (rows, D) of ``dtype``, starting ``offset`` elements into its storage, and w."""
+    rs = np.random.RandomState(seed)
+    flat = torch.from_numpy(rs.randn(rows * D + offset).astype(np.float32))
+    x = flat.to(device, DTYPES[dtype])[offset:].view(rows, D)
+    w = torch.from_numpy((1.0 + 0.1 * rs.randn(D)).astype(np.float32)).to(device)
+    return x, w
+
+
+#: K2's routes for rows wider than 4096 (``kernels/rmsnorm.py``: ``ROUTES``)
+WIDE_ROUTES = ["row-per-block", "cluster-split", "row-per-block-streamed"]
+
+
+def routes_taking(D: int) -> list[str]:
+    """The routes that take rows of D values (in both dtypes)."""
+    return ((["warp-per-row"] if D <= 4096 else []) + (["row-per-block"] if D <= 8192 else [])
+            + ["cluster-split", "row-per-block-streamed"])
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize(
     "shape",
     [(2, 256, 64), (120, 96), (4, 1024, 1152), (4, 1, 1152), (8, 1024, 2048), (64, 100),
      (1, 2048), (3, 5000), (1500, 1024), (4, 1, 1024), (2, 1024, 4096), (4, 1, 4096),
-     (2, 1024, 8192), (4, 1, 8192)],
+     (2, 1024, 8192), (4, 1, 8192), (2, 1024, 6144), (4, 1, 6144), (4, 1, 7168), (1, 8192),
+     (300, 12288), (3, 20000)],
 )
 def test_rmsnorm_kernel_matches_plain(cuda, dtype, shape):
     """K2 at the serving (1152) and training (2048) widths, a width that is no multiple
     of the 16-byte vector (100), a single row, a row wider than the warp-per-row
     kernel holds (5000), and the widths of whisper-medium (1024), of
-    llama-3.2-vision-11b and the Jamba block (4096, the widest warp-per-row row) and of
-    the Jamba gate norm (8192), prefill and decode rows."""
+    llama-3.2-vision-11b and the Jamba block (4096, the widest warp-per-row row), of
+    the Jamba gate norm (8192) and of the dry run's archs (6144: starcoder2-15b and
+    grok-1-314b; 7168: deepseek-coder-33b and kimi-k2), prefill and decode rows; and
+    rows wider than route 1 holds in registers (12288, streamed; 20000 over a
+    cluster)."""
     rs = np.random.RandomState(0)
     x = torch.from_numpy(rs.randn(*shape).astype(np.float32)).to(cuda, DTYPES[dtype])
     w = torch.from_numpy((1.0 + 0.1 * rs.randn(shape[-1])).astype(np.float32)).to(cuda)
@@ -243,6 +271,71 @@ def test_rmsnorm_kernel_takes_unaligned_rows(cuda, dtype):
     assert x.data_ptr() % 16 != 0
     w = torch.from_numpy((1.0 + 0.1 * rs.randn(1152)).astype(np.float32)).to(cuda)
     np.testing.assert_allclose(f32(rmsnorm_fwd(x, w)), f32(tref.rmsnorm_ref(x, w)), **TOL[dtype])
+    for r in routes_taking(1152):  # 16 rows take route 1: the others forced
+        np.testing.assert_allclose(f32(tkrms.rmsnorm_fwd_on(x, w, r)), f32(tref.rmsnorm_ref(x, w)),
+                                   **TOL[dtype])
+
+
+#: (D, route below the threshold, route at and above it)
+THRESHOLD_CASES = [(128, "warp-per-row", "warp-per-row"),
+                   (4096, "row-per-block", "warp-per-row"),
+                   (8192, "row-per-block", "row-per-block"),
+                   (16384, "cluster-split", "row-per-block-streamed")]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("offset", [-1, 0, 1])
+@pytest.mark.parametrize("D,below,above", THRESHOLD_CASES)
+def test_rmsnorm_routes_around_the_few_rows_threshold(cuda, dtype, offset, D, below, above):
+    """Rows one below, at and one above the row count below which K2 takes its few-rows
+    routes: at 128 (one vector a lane in either dtype) the warp-per-row kernel on both
+    sides, at 4096 route 1 below and the warp-per-row kernel from it, at 8192 (the
+    Jamba gate norm) route 1 on both sides, at 16384 route 2 below and route 1 streamed
+    from it; each call counted once under its route, each at the tolerance."""
+    rows = tkrms.few_rows() + offset
+    x, w = rms_inputs(6, rows, D, dtype, cuda)
+    want = below if offset < 0 else above
+    assert tkrms.route(x) == want
+    kernels.reset_launches()
+    got = rmsnorm_fwd(x, w)
+    assert build.K2_ROUTES == {want: 1} and kernels.LAUNCHES["rmsnorm_fwd"] == 1
+    np.testing.assert_allclose(f32(got), f32(tref.rmsnorm_ref(x, w)), **TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("rows,D", [(4096, 8192), (4, 8192), (16, 5000), (300, 6144), (4, 16384),
+                                    (4, 1024), (4, 4096), (64, 100)])
+def test_rmsnorm_routes_agree_and_repeat(cuda, dtype, rows, D):
+    """Each route that takes rows of D, forced: within the tolerance of the plain
+    version, and two calls on the same inputs bitwise equal (every block of a cluster
+    scales by the same r, and nothing is summed in a varying order)."""
+    x, w = rms_inputs(7, rows, D, dtype, cuda)
+    want = tref.rmsnorm_ref(x, w)
+    for r in routes_taking(D):
+        first = tkrms.rmsnorm_fwd_on(x, w, r)
+        np.testing.assert_allclose(f32(first), f32(want), **TOL[dtype])
+        for _ in range(2):
+            assert torch.equal(tkrms.rmsnorm_fwd_on(x, w, r), first), r
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("rows", [16, 300])
+def test_rmsnorm_wide_routes_take_unaligned_rows(cuda, dtype, rows):
+    """Rows of 8192 that start off a 16-byte boundary take the masked scalar loads and
+    stores, on each wide route."""
+    x, w = rms_inputs(8, rows, 8192, dtype, cuda, offset=1)
+    assert x.data_ptr() % 16 != 0
+    want = tref.rmsnorm_ref(x, w)
+    np.testing.assert_allclose(f32(rmsnorm_fwd(x, w)), f32(want), **TOL[dtype])
+    for r in WIDE_ROUTES:
+        np.testing.assert_allclose(f32(tkrms.rmsnorm_fwd_on(x, w, r)), f32(want), **TOL[dtype])
+
+
+def test_rmsnorm_routes_refuse_widths_they_do_not_take(cuda):
+    x, w = rms_inputs(9, 4, 8192 + 8, "bfloat16", cuda)
+    for r in ("warp-per-row", "row-per-block"):
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            tkrms.rmsnorm_fwd_on(x, w, r)
 
 
 # K4's bf16 path (the tensor-core kernel) at the main paths' geometries and ragged
