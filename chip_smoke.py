@@ -9,7 +9,7 @@ Drives ``repro_torch`` only (never ``repro`` or ``jax``), on one CUDA device:
 2. builds the hand-written kernels from ``src/repro_torch/csrc`` with nvcc, and
    prints ptxas's registers and spills of K4's tensor-core instantiations (bf16,
    head_dim 128 and 256), of its five f32 SIMT instantiations (head_dim 16 to 256),
-   of K2's four kernels (its routes), of K3's main kernel and of K5's five kernels (its
+   of K2's three kernels (its routes), of K3's main kernel and of K5's five kernels (its
    three passes in bf16 and f32; none of them may spill), and, where ``cuobjdump`` is
    installed,
    the HMMA instructions of K5's bf16 passes (there must be some) and the FFMA and
@@ -20,7 +20,7 @@ Drives ``repro_torch`` only (never ``repro`` or ``jax``), on one CUDA device:
    1024, and ragged Sq, Skv at head_dim 128 and 256; the f32 kernel also at the main
    paths' shapes, every head_dim at GQA groups of 1, 4 and 8, windows that cross a KV
    tile and ragged Sq != Skv, untimed, its lse against the chunked twin and two calls
-   bitwise equal; K2 also at a width of 100, and forced onto each of its four routes at
+   bitwise equal; K2 also at a width of 100, and forced onto each of its three routes at
    widths they take, a ragged width and rows off a 16-byte boundary, two calls bitwise
    equal) and
    at the shapes of the gemma3-1b serving path, and times the kernel, the plain
@@ -103,17 +103,15 @@ Drives ``repro_torch`` only (never ``repro`` or ``jax``), on one CUDA device:
 23. serves whisper-medium at full width in bf16 (random weights from a seed): batch 4,
     1500 encoder frames, prompt 416, 32 greedy tokens, through
     ``repro_torch.launch.serve``, with exactly 72 K4 and 122 K2 launches a prefill and
-    73 K2 a decode step, and K2's launches by route (a prefill's on the warp-per-row
-    kernel but for the last position's final norm, a step's on route 1); then the same
-    prefill with the plain versions, in bf16 and
+    73 K2 a decode step, and K2's launches by route (all on the warp-per-row kernel);
+    then the same prefill with the plain versions, in bf16 and
     with the same weights widened to f32;
 24. the same for llama-3.2-vision-11b (1600 image tokens, prompt 1024): 48 K4 and 89
     K2 a prefill, 89 K2 a decode step; its bf16 weights are freed as they are widened;
 25. the same for one Jamba block (8 of jamba-v0.1-52b's 32 layers: the whole model
     does not fit on one card) at prompt 1024: 1 K4, 21 K5 (7 calls of 3 passes) and
-    24 K2 a prefill (16 warp-per-row; on route 1 the 7 Mamba gate norms of 8192 and the
-    final norm of the last position's 4 rows), 24 K2 a decode step (all on route 1), and
-    the share of (token, k) routing choices
+    24 K2 a prefill and 24 a decode step (17 on the warp-per-row kernel, the 7 Mamba gate
+    norms of 8192 on route 1), and the share of (token, k) routing choices
     on which the kernels and the plain versions agree (bounded in bf16 and in f32),
     beside the spread of two plain versions with no kernel between them; its f32
     comparison runs on the block's first 4 layers.  The bf16 logit bound of this path
@@ -586,8 +584,7 @@ XATTN_CASES = {
 # K2's bf16 rows on this slice's paths (phase 21): whisper's D 1024 (the encoder's 1500
 # frames, the decoder's 416-token prompt), vision's and the Jamba block's D 4096 (the
 # widest row of the warp-per-row kernel), the Jamba gate norm over d_inner 8192 (route
-# 1, a block a row), and a decode step's rows at each width (route 1: fewer rows than
-# three quarters of the SMs)
+# 1, a block a row), and a decode step's rows at each width
 RMS_XA_CASES = {
     "whisper encoder": (4, 1500, 1024),
     "whisper decoder": (4, 416, 1024),
@@ -597,15 +594,16 @@ RMS_XA_CASES = {
     "Jamba gate norm": (4, 1024, 8192),
     "Jamba gate norm decode": (4, 1, 8192),
 }
-# K2's routes forced at (rows, D) (phase 3, both dtypes, untimed): all four at a decode
-# step's rows of 1024 and at a width off the vector (100), the three wide ones at many rows of 8192 and at a ragged width,
-# route 2 and the streamed route at few rows of 16384 (wider than route 1 holds)
+# K2's routes forced at (rows, D) (phase 3, both dtypes, untimed): all three at a decode
+# step's rows of 1024 and at a width off the vector (100), the two wide ones at many
+# rows of 8192 and at a ragged width, the streamed route at few rows of 16384 (wider
+# than route 1 holds)
 K2_ROUTE_CASES = {
-    (4, 1024): ("warp-per-row", "row-per-block", "cluster-split", "row-per-block-streamed"),
-    (64, 100): ("warp-per-row", "row-per-block", "cluster-split", "row-per-block-streamed"),
-    (300, 8192): ("row-per-block", "cluster-split", "row-per-block-streamed"),
-    (16, 5000): ("row-per-block", "cluster-split", "row-per-block-streamed"),
-    (4, 16384): ("cluster-split", "row-per-block-streamed"),
+    (4, 1024): ("warp-per-row", "row-per-block", "row-per-block-streamed"),
+    (64, 100): ("warp-per-row", "row-per-block", "row-per-block-streamed"),
+    (300, 8192): ("row-per-block", "row-per-block-streamed"),
+    (16, 5000): ("row-per-block", "row-per-block-streamed"),
+    (4, 16384): ("row-per-block-streamed",),
 }
 # (Bt, S, H, P, G, N): K5 at the Jamba block's serving shape (128 SSM heads)
 SSD_JAMBA = (4, 1024, 128, 64, 1, 128)
@@ -1202,19 +1200,18 @@ def xattn_moe_phases(torch, dev, card: str) -> dict:
     counts = {}
     # -- 23. whisper-medium: 24 encoder + 24 decoder layers, cross-attention on each ----
     # K4: 24 encoder (non-causal), 24 decoder (causal), 24 cross; K2: 2 x 24 + 1 in the
-    # encoder, 3 x 24 + 1 in the decoder, and 3 x 24 + 1 a decode step.  K2's routes:
-    # a prefill's rows (thousands) take the warp-per-row kernel, but for the final norm
-    # of the last position's 4 rows, which takes route 1, as a step's 4 rows all do
+    # encoder, 3 x 24 + 1 in the decoder, and 3 x 24 + 1 a decode step, all on the
+    # warp-per-row kernel (rows of 1024)
     counts["serve_whisper"] = serve_path(
         "serve-whisper", get_config("whisper-medium"), DEC_CONTEXT - XA_GEN,
         {"flash_attention_fwd": 72, "rmsnorm_fwd": 122}, {"rmsnorm_fwd": 73},
-        XA_BF16_REL_BOUND, ({"warp-per-row": 121, "row-per-block": 1}, {"row-per-block": 73}),
+        XA_BF16_REL_BOUND, ({"warp-per-row": 122}, {"warp-per-row": 73}),
         note=f"; {ENC_FRAMES} encoder frames (30 s at 50 Hz)")
     # -- 24. llama-3.2-vision-11b: 40 layers, cross-attention on 8 --------------------
     counts["serve_vision"] = serve_path(
         "serve-vision", get_config("llama-3.2-vision-11b"), XA_PROMPT,
         {"flash_attention_fwd": 48, "rmsnorm_fwd": 89}, {"rmsnorm_fwd": 89},
-        XA_BF16_REL_BOUND, ({"warp-per-row": 88, "row-per-block": 1}, {"row-per-block": 89}))
+        XA_BF16_REL_BOUND, ({"warp-per-row": 89}, {"warp-per-row": 89}))
     # -- 25. one Jamba block: 7 Mamba-2 layers, attention at index 3, MoE on the odd -----
     from repro_torch.kernels.ssd_scan import LAUNCHES_PER_CALL as SSD_LAUNCHES
     jamba = dataclasses.replace(get_config("jamba-v0.1-52b"), n_layers=JAMBA_LAYERS)
@@ -1222,10 +1219,9 @@ def xattn_moe_phases(torch, dev, card: str) -> dict:
         "serve-jamba", jamba, XA_PROMPT,
         {"flash_attention_fwd": 1, "ssd_scan_fwd": 7 * SSD_LAUNCHES, "rmsnorm_fwd": 24},
         {"rmsnorm_fwd": 24}, JAMBA_BF16_REL_BOUND,
-        # 17 norms of 4096 and the 7 Mamba gate norms of 8192: a prefill's 4096 rows
-        # take the warp-per-row kernel and route 1, the final norm's and a step's 4 rows
-        # route 1
-        ({"warp-per-row": 16, "row-per-block": 8}, {"row-per-block": 24}),
+        # 17 norms of 4096 on the warp-per-row kernel, the 7 Mamba gate norms of 8192 on
+        # route 1, in a prefill and in a step alike
+        ({"warp-per-row": 17, "row-per-block": 7}, {"warp-per-row": 17, "row-per-block": 7}),
         f32_layers=JAMBA_F32_LAYERS,
         note=f"; depth cut to {JAMBA_LAYERS} of 32 layers, one whole Jamba block (52B in "
              f"bf16, ~104 GB, does not fit on one card)")
@@ -2636,7 +2632,6 @@ def main() -> int:
     from repro_torch.kernels import LAUNCHES, build, ops, ref, reset_launches
     from repro_torch.kernels.flash_attention import flash_attention_fwd
     from repro_torch.kernels.rmsnorm import rmsnorm_bwd, rmsnorm_fwd, rmsnorm_fwd_on
-    from repro_torch.kernels.rmsnorm import route as k2_route
     from repro_torch.kernels.ssd_scan import LAUNCHES_PER_CALL as SSD_LAUNCHES
     from repro_torch.kernels.ssd_scan import plan as ssd_plan
     from repro_torch.kernels.ssd_scan import ssd_scan_fwd
@@ -2677,7 +2672,6 @@ def main() -> int:
                "rmsnorm_fwd_kernel": "K2 warp-per-row",
                "rmsnorm_fwd_row_kernel": "K2 row-per-block (route 1)",
                "rmsnorm_fwd_stream_kernel": "K2 row-per-block streamed",
-               "rmsnorm_fwd_cluster_kernel": "K2 cluster-split (route 2)",
                "rmsnorm_bwd_kernel": "K3 main kernel",
                **SSD_ENTRIES}
     seen = set()
@@ -2724,9 +2718,14 @@ def main() -> int:
 
     def rms_case(x, w):
         """K2 against its plain version: error, kernel / plain / F.rms_norm times, bound,
-        and the route the dispatch took."""
-        taken = k2_route(x)
-        err = check(rmsnorm_fwd(x, w), ref.rmsnorm_ref(x, w), dtype_name(x))
+        and the route that the checked launch took (its one count in ``K2_ROUTES``)."""
+        before, n0 = dict(build.K2_ROUTES), LAUNCHES["rmsnorm_fwd"]
+        got = rmsnorm_fwd(x, w)
+        took = {r: n - before.get(r, 0) for r, n in build.K2_ROUTES.items()
+                if n != before.get(r, 0)}
+        assert LAUNCHES["rmsnorm_fwd"] - n0 == 1 and list(took.values()) == [1], took
+        (taken,) = took
+        err = check(got, ref.rmsnorm_ref(x, w), dtype_name(x))
         w_lib = w.to(x.dtype)  # F.rms_norm wants the weight in x's dtype
         bound_ms, bound_by = bound(
             2 * x.numel() * x.element_size() + w.numel() * 4, 4 * x.numel(), F32_FLOPS
@@ -3052,7 +3051,7 @@ def main() -> int:
             for r in routes:
                 rms_route_case(x_, w_, r)
         x_ = randn(16 * 8192 + 1, dtype=dtype)[1:].view(16, 8192)
-        for r in ("row-per-block", "cluster-split", "row-per-block-streamed"):
+        for r in ("row-per-block", "row-per-block-streamed"):
             rms_route_case(x_, 1 + 0.1 * randn(8192), r)
     for B, H, KVH, Sq, Skv, D, causal, window in FA_TC_CASES:
         fa_case(randn(B, H, Sq, D, dtype=torch.bfloat16), randn(B, KVH, Skv, D, dtype=torch.bfloat16),

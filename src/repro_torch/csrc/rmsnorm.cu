@@ -13,32 +13,28 @@
 // row whose width is not a multiple of the vector, or whose base is not 16-byte
 // aligned, takes masked scalar loads and stores in the same kernel (the `vec` flag).
 // The statistics are computed in f32 and the output is rounded to x's dtype, as the
-// reference does.  Four routes (fwd_route chooses; rmsnorm_fwd returns which):
-//   - warp-per-row (rmsnorm_fwd_kernel), many rows of up to 4096 values (kWarpRowMax),
-//     and few rows that one vector a lane covers:
-//     a warp a row, 4 rows a block, the sum a warp shuffle with no __syncthreads.
+// reference does.  Three routes, chosen by the row width alone (fwd_route; rmsnorm_fwd
+// returns which):
+//   - warp-per-row (rmsnorm_fwd_kernel), rows of up to 4096 values (kWarpRowMax): a warp
+//     a row, 4 rows a block, the sum a warp shuffle with no __syncthreads.
 //   - row-per-block, route 1 (rmsnorm_fwd_row_kernel), rows of 4097 to 8192 values
-//     (kRowMax), and a decode step's few rows of up to 8192 that are wider than one
-//     vector a lane (256 bf16 or 128 f32 values): 256 threads a row, 4 bf16
-//     or 8 f32 vectors a thread, on a persistent grid whose blocks walk the rows with the
-//     next row's loads in flight; w stays in registers for all of a block's rows.
-//   - cluster-split, route 2 (rmsnorm_fwd_cluster_kernel), few rows wider than 8192, up
-//     to 65536 bf16 or 32768 f32 values: a row over a cluster of up to 8 blocks (the
-//     portable limit), the blocks' partial sums exchanged through distributed shared
-//     memory and added in one fixed order.
-//   - row-per-block streamed (rmsnorm_fwd_stream_kernel), many rows wider than 8192,
-//     and any width: route 1's block and grid, the row read twice in 16-byte vectors
-//     (the second time from L2).
-// "Few" is fewer rows than three quarters of the SMs (few_rows).  There a row to a
-// block leaves most SMs idle and a call takes about one round trip to memory: route 1
-// issues its x and w loads together and reaches it, where the warp-per-row kernel
-// walks a lane's vectors and then w's; a row one vector a lane covers stays on the
-// warp-per-row kernel, faster there by its missing block barrier.  A cluster launch
-// costs the card ~0.8 us more than a plain one (measured: the same one-block kernel
-// launched both ways), more than one SM's transfer of a row of 8192, so route 2 pays
-// only for rows route 1 would have to stream.  The grid cannot overflow: rows are at
-// most 2^31 - 1 (rmsnorm_fwd), route 1's grids are persistent, and route 2 takes fewer
-// rows than the SMs.
+//     (kRowMax): 256 threads a row, 4 bf16 or 8 f32 vectors a thread, on a persistent
+//     grid whose blocks walk the rows with the next row's loads in flight; w stays in
+//     registers for all of a block's rows.
+//   - row-per-block streamed (rmsnorm_fwd_stream_kernel), rows wider than 8192, any
+//     width: route 1's block and grid, the row read twice in 16-byte vectors (the
+//     second time from L2).
+// Each threshold is the widest row a kernel holds in registers; no row count moves a
+// row to another route.  At a decode step's few rows a call takes about one round trip
+// to memory, and route 1, which issues its x and w loads together, is faster there
+// than the warp-per-row kernel from 512 values on (measured on the H100, PERF.md); rows
+// of up to 4096 stay on the warp-per-row kernel all the same (route 1 for them is open
+// work, ROADMAP §B).  A row split over a thread block cluster, its blocks' partial sums
+// exchanged through distributed shared memory, was slower than route 1 at every
+// decode step's rows up to 8192 (a cluster launch costs the card ~0.8 us more than a
+// plain one, more than one SM's transfer of a row of 8192), and no path gives wider
+// rows, so it is kept only as csrc/variants/k2_cluster_split.patch.  The grid cannot
+// overflow: rows are at most 2^31 - 1 (rmsnorm_fwd) and route 1's grids are persistent.
 //
 // Backward (K3), with r = rsqrt(mean(x^2) + eps):
 //   dx = r*dy*w - x*r^3*mean(dy*w*x)      (in x's dtype)
@@ -375,80 +371,9 @@ __global__ void __launch_bounds__(kRowThreads)
   }
 }
 
-// Route 2, cluster-split: a row over a cluster of C blocks of kClusterThreads, each
-// thread holding NV vectors of it (the C * kClusterThreads threads of a row interleave
-// as route 1's do) and its w, both loads issued at once.  Each warp hands its sum of
-// squares to every block of the cluster (a store to distributed shared memory, lane j
-// to block j), into the slot of its (rank, warp); after one cluster barrier each block
-// adds the row's C * kClusterWarps sums from its own shared memory in one fixed order
-// (lane p adds sums p, p + 32, ..., then a butterfly, whose pairwise sums commute), so
-// every block scales by a bitwise-identical r.  A block stores into a peer only after
-// every block of the cluster has started (a first barrier phase, arrived at when the
-// block starts and waited on after its loads), and reads nothing remote, so it may
-// exit as soon as it has stored.
-constexpr int kClusterThreads = 128;
-constexpr int kClusterWarps = kClusterThreads / 32;
-constexpr int kClusterMax = 8;  // blocks a cluster, the portable limit
-constexpr int kClusterVectors = 8;  // vectors a thread, at most
-
-__device__ __forceinline__ uint32_t cluster_rank() {
-  uint32_t r;
-  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
-  return r;
-}
-
-__device__ __forceinline__ void cluster_arrive_relaxed() {
-  asm volatile("barrier.cluster.arrive.relaxed.aligned;" ::: "memory");
-}
-
-__device__ __forceinline__ void cluster_arrive() {
-  asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
-}
-
-__device__ __forceinline__ void cluster_wait() {
-  asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
-}
-
-// stores v at `p` in the shared memory of the cluster's block `rank`
-__device__ __forceinline__ void st_cluster(float* p, uint32_t rank, float v) {
-  const uint32_t local = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  uint32_t remote;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(remote) : "r"(local), "r"(rank));
-  asm volatile("st.shared::cluster.f32 [%0], %1;" ::"r"(remote), "f"(v) : "memory");
-}
-
-template <typename T, int C, int NV>
-__global__ void __launch_bounds__(kClusterThreads)
-    rmsnorm_fwd_cluster_kernel(const T* __restrict__ x, const float* __restrict__ w,
-                               T* __restrict__ y, int D, float eps, int vec) {
-  constexpr int VEC = Vec16<T>::N;
-  constexpr int N = C * kClusterThreads;  // threads a row
-  constexpr int P = C * kClusterWarps;  // sums a row
-  __shared__ float part[P];
-  cluster_arrive_relaxed();  // this block has started
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const long long row = blockIdx.x / C;
-  const int rank = static_cast<int>(cluster_rank());
-  const int t = rank * kClusterThreads + threadIdx.x;
-  Vecs<T, NV> a;
-  float wr[NV][VEC];
-  load_vectors<T, NV, N>(a, x + row * D, D, t, vec);
-  load_w<NV, VEC, N>(wr, w, D, t, vec);
-  const float ss = warp_sum(sum_squares(a));
-  cluster_wait();  // every block has started: its shared memory takes the sums
-  if (lane < C) st_cluster(&part[rank * kClusterWarps + warp], lane, ss);
-  cluster_arrive();
-  cluster_wait();
-  float s = 0.f;
-#pragma unroll
-  for (int p = lane; p < P; p += 32) s += part[p];
-  s = warp_sum(s);
-  store_scaled<T, NV, N>(y + row * D, a, wr, rsqrtf(s / static_cast<float>(D) + eps), D, t, vec);
-}
-
 // The routes, as rmsnorm_fwd returns them and the wrapper names them
 // (kernels/rmsnorm.py: ROUTES).
-constexpr int kRouteWarp = 0, kRouteRow = 1, kRouteCluster = 2, kRouteStream = 3;
+constexpr int kRouteWarp = 0, kRouteRow = 1, kRouteStream = 2;
 
 constexpr int kMaxDevices = 64;
 
@@ -467,14 +392,6 @@ int device_sms() {
     sms[device] = 0;
   return sms[device];
 }
-
-// Fewer rows than this (on a card of `sms` SMs) are a decode step's: one row a block
-// leaves most SMs idle, and a call takes about one round trip to memory whatever the
-// route.  Measured on the H100 (PERF.md, PR 25): route 2 beats route 1's streamed
-// kernel up to 99 rows of 16384 and 32768 values and loses from 132; route 1 beats the
-// warp-per-row kernel at every row count up to 528 from 512 values on, and loses to it
-// where one vector a lane covers the row (256 bf16 or 128 f32 values).
-int few_rows(int sms) { return sms - sms / 4; }
 
 // Route 1's persistent grid for `rows` rows: as many blocks of its kernel (the streamed
 // one for NV 0) as the current device holds at once (found once a device), at most one
@@ -499,38 +416,6 @@ int row_grid(long long rows) {
   return static_cast<int>(rows < most ? rows : most);
 }
 
-// route 2's cluster (C blocks) and vectors a thread (NV) for rows of D values of T: the
-// fewest blocks of kClusterThreads that give each thread one vector, up to kClusterMax,
-// then the fewest vectors a thread.  False past kClusterMax * kClusterThreads *
-// kClusterVectors vectors (65536 bf16 or 32768 f32 values).
-template <typename T>
-bool cluster_shape(int D, int& C, int& NV) {
-  const int vectors = (D + Vec16<T>::N - 1) / Vec16<T>::N;
-  C = 1;
-  NV = 1;
-  while (C < kClusterMax && C * kClusterThreads < vectors) C *= 2;
-  while (NV < kClusterVectors && C * kClusterThreads * NV < vectors) NV *= 2;
-  return C * kClusterThreads * NV >= vectors;
-}
-
-template <typename T, int C, int NV>
-cudaError_t cluster_launch(const T* x, const float* w, T* y, long long rows, int D, float eps,
-                           int vec, cudaStream_t s) {
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(static_cast<unsigned>(rows * C));
-  cfg.blockDim = dim3(kClusterThreads);
-  cfg.dynamicSmemBytes = 0;
-  cfg.stream = s;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = C;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  return cudaLaunchKernelEx(&cfg, rmsnorm_fwd_cluster_kernel<T, C, NV>, x, w, y, D, eps, vec);
-}
-
 // Launches K2 for rows of width D on `route`; returns the route, or minus the CUDA error
 // (cudaErrorInvalidValue for a width the route does not take).
 template <typename T>
@@ -544,7 +429,6 @@ int fwd_on_route(const void* xp, const void* wp, void* yp, long long rows, int D
                                     reinterpret_cast<uintptr_t>(wp) |
                                     reinterpret_cast<uintptr_t>(yp)) & 15) == 0;
   const int bad = -static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaSuccess;
   if (route == kRouteWarp) {
     if (D > kWarpRowMax) return bad;
     const int per_lane = (D + 32 * VEC - 1) / (32 * VEC);
@@ -571,34 +455,18 @@ int fwd_on_route(const void* xp, const void* wp, void* yp, long long rows, int D
     const int grid = row_grid<T, 0>(rows);
     if (grid <= 0) return bad;
     rmsnorm_fwd_stream_kernel<T><<<grid, kRowThreads, 0, s>>>(x, w, y, rows, D, eps, vec);
-  } else if (route == kRouteCluster) {
-    int C = 0, NV = 0;
-    if (!cluster_shape<T>(D, C, NV) || rows * C > 0x7fffffffLL) return bad;
-    if (C == 1) err = cluster_launch<T, 1, 1>(x, w, y, rows, D, eps, vec, s);
-    else if (C == 2) err = cluster_launch<T, 2, 1>(x, w, y, rows, D, eps, vec, s);
-    else if (C == 4) err = cluster_launch<T, 4, 1>(x, w, y, rows, D, eps, vec, s);
-    else if (NV == 1) err = cluster_launch<T, 8, 1>(x, w, y, rows, D, eps, vec, s);
-    else if (NV == 2) err = cluster_launch<T, 8, 2>(x, w, y, rows, D, eps, vec, s);
-    else if (NV == 4) err = cluster_launch<T, 8, 4>(x, w, y, rows, D, eps, vec, s);
-    else err = cluster_launch<T, 8, 8>(x, w, y, rows, D, eps, vec, s);
   } else {
     return bad;
   }
-  if (err == cudaSuccess) err = cudaGetLastError();
+  const cudaError_t err = cudaGetLastError();
   return err == cudaSuccess ? route : -static_cast<int>(err);
 }
 
-// The route rmsnorm_fwd takes for `rows` rows of D values of T on the current device:
-// the warp-per-row kernel for many rows of up to kWarpRowMax values and for rows one
-// vector a lane covers, route 1 for few wider rows and every row up to kRowMax, route 2
-// for few rows wider than that, route 1 streamed for the rest.
-template <typename T>
-int fwd_route(long long rows, int D) {
-  const bool few = rows < few_rows(device_sms());
-  if (D <= kWarpRowMax) return few && D > 32 * Vec16<T>::N ? kRouteRow : kRouteWarp;
-  if (D <= kRowMax) return kRouteRow;
-  int C = 0, NV = 0;
-  return few && cluster_shape<T>(D, C, NV) ? kRouteCluster : kRouteStream;
+// The route rmsnorm_fwd takes for rows of D values: the narrowest kernel that holds the
+// row in registers, else the streamed one.
+int fwd_route(int D) {
+  if (D <= kWarpRowMax) return kRouteWarp;
+  return D <= kRowMax ? kRouteRow : kRouteStream;
 }
 
 constexpr int kBwdWarps = 16;  // warps a block
@@ -946,25 +814,10 @@ extern "C" int rmsnorm_bwd(const void* x, const void* w, const void* dy, void* d
 }
 
 // x, y: (rows, D) contiguous, dtype code `dtype`; w: (D,) f32.  Launches K2 on `stream`
-// on the route fwd_route chooses.  Returns that route (0 warp-per-row, 1 row-per-block,
-// 2 cluster-split, 3 row-per-block streamed) once the launch was accepted, or minus the
-// CUDA error.
-extern "C" int rmsnorm_fwd(const void* x, const void* w, void* y, long long rows, int D,
-                           int dtype, float eps, void* stream) {
-  using namespace repro_torch;
-  const int bad = -static_cast<int>(cudaErrorInvalidValue);
-  if (rows <= 0 || rows > 0x7fffffffLL || D <= 0) return bad;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == kFloat32)
-    return fwd_on_route<float>(x, w, y, rows, D, eps, fwd_route<float>(rows, D), s);
-  if (dtype == kBFloat16)
-    return fwd_on_route<__nv_bfloat16>(x, w, y, rows, D, eps,
-                                       fwd_route<__nv_bfloat16>(rows, D), s);
-  return bad;
-}
-
-// rmsnorm_fwd on the route given (to time and test each route at any width it takes);
-// minus cudaErrorInvalidValue for a width the route does not take.
+// on `route` (0 warp-per-row, 1 row-per-block, 2 row-per-block streamed), to time and
+// test each route at any width it takes.  Returns the route once the launch was
+// accepted, or minus the CUDA error (cudaErrorInvalidValue for a width the route does
+// not take).
 extern "C" int rmsnorm_fwd_on_route(const void* x, const void* w, void* y, long long rows,
                                     int D, int dtype, float eps, int route, void* stream) {
   using namespace repro_torch;
@@ -976,16 +829,8 @@ extern "C" int rmsnorm_fwd_on_route(const void* x, const void* w, void* y, long 
   return bad;
 }
 
-// The route rmsnorm_fwd takes for these rows on the current device, or -1.
-extern "C" int rmsnorm_fwd_route(long long rows, int D, int dtype) {
-  using namespace repro_torch;
-  if (rows <= 0 || rows > 0x7fffffffLL || D <= 0) return -1;
-  if (dtype == kFloat32) return fwd_route<float>(rows, D);
-  if (dtype == kBFloat16) return fwd_route<__nv_bfloat16>(rows, D);
-  return -1;
-}
-
-// Rows below which rmsnorm_fwd takes its few-rows routes on the current device.
-extern "C" int rmsnorm_fwd_few_rows() {
-  return repro_torch::few_rows(repro_torch::device_sms());
+// rmsnorm_fwd_on_route on the route fwd_route chooses for the width.
+extern "C" int rmsnorm_fwd(const void* x, const void* w, void* y, long long rows, int D,
+                           int dtype, float eps, void* stream) {
+  return rmsnorm_fwd_on_route(x, w, y, rows, D, dtype, eps, repro_torch::fwd_route(D), stream);
 }

@@ -146,10 +146,6 @@ def load() -> ctypes.CDLL:
         lib.rmsnorm_fwd.restype = i
         lib.rmsnorm_fwd_on_route.argtypes = [p, p, p, ctypes.c_longlong, i, i, f, i, p]
         lib.rmsnorm_fwd_on_route.restype = i
-        lib.rmsnorm_fwd_route.argtypes = [ctypes.c_longlong, i, i]
-        lib.rmsnorm_fwd_route.restype = i
-        lib.rmsnorm_fwd_few_rows.argtypes = []
-        lib.rmsnorm_fwd_few_rows.restype = i
         lib.rmsnorm_bwd.argtypes = [p, p, p, p, p, p, ctypes.c_longlong, i, i, i, f, p]
         lib.rmsnorm_bwd.restype = i
         lib.rmsnorm_bwd_blocks.argtypes = [i, i]

@@ -5,13 +5,10 @@ plain PyTorch versions are :func:`repro_torch.kernels.ref.rmsnorm_ref` and
 :func:`repro_torch.kernels.ref.rmsnorm_bwd_ref`; :func:`repro_torch.kernels.ops.rmsnorm`
 chooses between them by device.  Unlike the TPU kernels, any number of rows works.
 
-K2 takes one of four routes (:data:`ROUTES`), chosen in C by the row width and by the
-row count against :func:`few_rows` (three quarters of the card's SMs): a warp per row
-for many rows of up to 4096 values and for rows one 16-byte vector a lane covers; a
-block per row, the row held in registers, for rows of up to 8192 and for few wider rows
-of any such width; a row split over a thread block
-cluster for few rows wider than that; and a block per row streaming its row twice for
-many such rows.
+K2 takes one of three routes (:data:`ROUTES`), chosen in C by the row width alone: a
+warp per row for rows of up to 4096 values, a block per row with the row held in
+registers for rows of up to 8192, and a block per row streaming its row twice for wider
+rows.  ``build.K2_ROUTES`` counts the launches by route.
 """
 
 from __future__ import annotations
@@ -24,7 +21,7 @@ _DTYPES = {torch.float32: "float32", torch.bfloat16: "bfloat16"}
 _CODES = {t: build.DTYPE_CODES[name] for t, name in _DTYPES.items()}
 
 #: K2's routes, by the code the C side returns (``csrc/rmsnorm.cu``)
-ROUTES = ("warp-per-row", "row-per-block", "cluster-split", "row-per-block-streamed")
+ROUTES = ("warp-per-row", "row-per-block", "row-per-block-streamed")
 
 
 def check_args(x: torch.Tensor, w: torch.Tensor) -> None:
@@ -93,23 +90,6 @@ def _launch(x: torch.Tensor, w: torch.Tensor, eps: float, route: int | None) -> 
     name = ROUTES[took]
     build.K2_ROUTES[name] = build.K2_ROUTES.get(name, 0) + 1
     return y
-
-
-def route(x: torch.Tensor) -> str:
-    """The route :func:`rmsnorm_fwd` takes for x on its device (card only)."""
-    D = x.shape[-1]
-    with torch.cuda.device(x.device):
-        code = _lib().rmsnorm_fwd_route(x.numel() // D, D, _CODES[x.dtype])
-    if code < 0:
-        raise ValueError(f"rmsnorm_fwd takes no x {tuple(x.shape)} {x.dtype}")
-    return ROUTES[code]
-
-
-def few_rows(device: int | None = None) -> int:
-    """Rows below which K2 takes its few-rows routes on ``device`` (the current one by
-    default)."""
-    with torch.cuda.device(device if device is not None else torch.cuda.current_device()):
-        return _lib().rmsnorm_fwd_few_rows()
 
 
 def check_bwd_args(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor) -> None:

@@ -9,8 +9,8 @@ a shape: the device ms of one call by CUDA events with the card held behind the 
 (``torch.cuda._sleep``) after an L2 flush, as ``chip_smoke.py`` reads ``kernel_ms``,
 the host µs a call, its share of the byte bound, and ``F.rms_norm`` (its backward)
 read the same way.  With ``--fwd``, where the tree's wrapper module has
-``rmsnorm_fwd_on`` and ``route``, the line also names the route the dispatch takes and
-times every route that takes the width, forced.  It uses only the wrappers'
+``rmsnorm_fwd_on`` and ``build.K2_ROUTES``, the line also names the route that one call
+took and times every route that takes the width, forced.  It uses only the wrappers'
 signatures, so one call of the script can time two checkouts in turn (``PYTHONPATH``
 set to each one's ``src``).
 """
@@ -32,10 +32,6 @@ from repro_torch.kernels.rmsnorm import rmsnorm_bwd, rmsnorm_fwd
 #: (shape, dtype, where the paths call K3 so)
 SHAPES = [
     ((8, 1024, 2048), "bfloat16", "internlm2 train step"),
-    ((4, 24, 64), "float32", "serve_batch prefill, d 64"),
-    ((4, 1, 64), "float32", "serve_batch decode, d 64"),
-    ((4, 24, 128), "float32", "serve_batch prefill, the Mamba gate norm's 128"),
-    ((4, 1, 128), "float32", "serve_batch decode, the Mamba gate norm's 128"),
     ((4, 1024, 2048), "bfloat16", "a 2x1 rank's rows"),
     ((8, 256, 512), "float32", "train_e2e step"),
     ((64, 2048), "bfloat16", "fewer rows than the grid has blocks"),
@@ -48,7 +44,7 @@ SHAPES = [
 
 #: K2's (shape, dtype, where the paths call it so): the Jamba gate norm's prefill and
 #: decode rows, the dry-run archs' widths, the decode and prefill rows at the narrower
-#: widths (the decode rows went from the warp-per-row kernel to route 1), and row
+#: widths (the warp-per-row kernel's, each also timed on route 1 forced), and row
 #: counts of 8192 from a quarter to twice the SMs
 FWD_SHAPES = [
     ((4, 1024, 8192), "bfloat16", "Jamba gate norm prefill"),
@@ -115,8 +111,10 @@ def main(argv=None) -> int:
             w = 1 + 0.1 * torch.randn(shape[-1], generator=gen, device="cuda")
             w_lib = w.to(dtype)
             out = {"shape": list(shape), "dtype": dtype_name, "where": where}
-            if hasattr(mod, "route"):
-                out["route"] = mod.route(x)
+            if hasattr(build, "K2_ROUTES"):
+                build.reset_launches()
+                rmsnorm_fwd(x, w)
+                (out["route"],) = build.K2_ROUTES
             timed(out, "k2", lambda: rmsnorm_fwd(x, w))
             timed(out, "f_rms_norm", lambda: F.rms_norm(x, (shape[-1],), w_lib, 1e-6))
             for r in routes:

@@ -259,9 +259,7 @@ def test_rmsnorm_route_wrappers_refuse_cpu_tensors_and_unknown_routes():
     """K2's forced-route wrapper launches a CUDA kernel or raises, as ``rmsnorm_fwd``
     does; a route it does not know is refused before any launch."""
     q = torch.zeros(4, 1024)
-    assert tkrms.ROUTES == (
-        "warp-per-row", "row-per-block", "cluster-split", "row-per-block-streamed"
-    )
+    assert tkrms.ROUTES == ("warp-per-row", "row-per-block", "row-per-block-streamed")
     for r in tkrms.ROUTES:
         with pytest.raises(ValueError, match="CUDA kernel"):
             tkrms.rmsnorm_fwd_on(q, torch.ones(1024), r)

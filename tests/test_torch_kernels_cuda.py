@@ -11,7 +11,7 @@ the gemma3-1b serving path and the internlm2-1.8b training path (K2 also at a wi
 that is no multiple of its 16-byte vector, a single row, rows wider than its
 warp-per-row kernel holds (the Jamba gate norm's 8192, the dry run's archs' 6144 and
 7168, and wider than its route 1 holds), and rows off a 16-byte boundary; its routes
-on either side of the row count where the dispatch turns, and each route forced, two
+by width at a decode step's rows and around the SM count, and each route forced, two
 calls bitwise equal; K3 likewise, at the widest
 rows of 8192, with fewer rows than its persistent grid has blocks, and with two calls
 bitwise equal, its dw summed in a fixed order).  K4's bf16 kernel (the
@@ -227,13 +227,13 @@ def rms_inputs(seed, rows, D, dtype, device, offset=0):
 
 
 #: K2's routes for rows wider than 4096 (``kernels/rmsnorm.py``: ``ROUTES``)
-WIDE_ROUTES = ["row-per-block", "cluster-split", "row-per-block-streamed"]
+WIDE_ROUTES = ["row-per-block", "row-per-block-streamed"]
 
 
 def routes_taking(D: int) -> list[str]:
     """The routes that take rows of D values (in both dtypes)."""
     return ((["warp-per-row"] if D <= 4096 else []) + (["row-per-block"] if D <= 8192 else [])
-            + ["cluster-split", "row-per-block-streamed"])
+            + ["row-per-block-streamed"])
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -251,8 +251,7 @@ def test_rmsnorm_kernel_matches_plain(cuda, dtype, shape):
     llama-3.2-vision-11b and the Jamba block (4096, the widest warp-per-row row), of
     the Jamba gate norm (8192) and of the dry run's archs (6144: starcoder2-15b and
     grok-1-314b; 7168: deepseek-coder-33b and kimi-k2), prefill and decode rows; and
-    rows wider than route 1 holds in registers (12288, streamed; 20000 over a
-    cluster)."""
+    rows wider than route 1 holds in registers (12288 and 20000, streamed)."""
     rs = np.random.RandomState(0)
     x = torch.from_numpy(rs.randn(*shape).astype(np.float32)).to(cuda, DTYPES[dtype])
     w = torch.from_numpy((1.0 + 0.1 * rs.randn(shape[-1])).astype(np.float32)).to(cuda)
@@ -271,31 +270,29 @@ def test_rmsnorm_kernel_takes_unaligned_rows(cuda, dtype):
     assert x.data_ptr() % 16 != 0
     w = torch.from_numpy((1.0 + 0.1 * rs.randn(1152)).astype(np.float32)).to(cuda)
     np.testing.assert_allclose(f32(rmsnorm_fwd(x, w)), f32(tref.rmsnorm_ref(x, w)), **TOL[dtype])
-    for r in routes_taking(1152):  # 16 rows take route 1: the others forced
+    for r in routes_taking(1152):  # the warp-per-row kernel's rows, on each route forced
         np.testing.assert_allclose(f32(tkrms.rmsnorm_fwd_on(x, w, r)), f32(tref.rmsnorm_ref(x, w)),
                                    **TOL[dtype])
 
 
-#: (D, route below the threshold, route at and above it)
-THRESHOLD_CASES = [(128, "warp-per-row", "warp-per-row"),
-                   (4096, "row-per-block", "warp-per-row"),
-                   (8192, "row-per-block", "row-per-block"),
-                   (16384, "cluster-split", "row-per-block-streamed")]
+#: (D, the route that takes rows of D values at any row count)
+WIDTH_ROUTES = [(128, "warp-per-row"), (4096, "warp-per-row"), (8192, "row-per-block"),
+                (16384, "row-per-block-streamed")]
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("offset", [-1, 0, 1])
-@pytest.mark.parametrize("D,below,above", THRESHOLD_CASES)
-def test_rmsnorm_routes_around_the_few_rows_threshold(cuda, dtype, offset, D, below, above):
-    """Rows one below, at and one above the row count below which K2 takes its few-rows
-    routes: at 128 (one vector a lane in either dtype) the warp-per-row kernel on both
-    sides, at 4096 route 1 below and the warp-per-row kernel from it, at 8192 (the
-    Jamba gate norm) route 1 on both sides, at 16384 route 2 below and route 1 streamed
-    from it; each call counted once under its route, each at the tolerance."""
-    rows = tkrms.few_rows() + offset
+@pytest.mark.parametrize("rows_off", [(4, 0), (0, -1), (0, 0), (0, 1)],
+                         ids=["4 rows", "SMs - 1", "SMs", "SMs + 1"])
+@pytest.mark.parametrize("D,want", WIDTH_ROUTES)
+def test_rmsnorm_routes_by_width_at_any_row_count(cuda, dtype, rows_off, D, want):
+    """K2's route follows the width alone: a decode step's 4 rows, and rows one below, at
+    and one above the card's SM count (where a row to a block starts to fill the card),
+    take the same route at each width (128, one vector a lane in either dtype; 4096, the
+    widest warp-per-row row; 8192, the Jamba gate norm; 16384, wider than route 1
+    holds); each call counted once under its route, each at the tolerance."""
+    rows, off = rows_off
+    rows = rows or torch.cuda.get_device_properties(cuda).multi_processor_count + off
     x, w = rms_inputs(6, rows, D, dtype, cuda)
-    want = below if offset < 0 else above
-    assert tkrms.route(x) == want
     kernels.reset_launches()
     got = rmsnorm_fwd(x, w)
     assert build.K2_ROUTES == {want: 1} and kernels.LAUNCHES["rmsnorm_fwd"] == 1
@@ -307,8 +304,8 @@ def test_rmsnorm_routes_around_the_few_rows_threshold(cuda, dtype, offset, D, be
                                     (4, 1024), (4, 4096), (64, 100)])
 def test_rmsnorm_routes_agree_and_repeat(cuda, dtype, rows, D):
     """Each route that takes rows of D, forced: within the tolerance of the plain
-    version, and two calls on the same inputs bitwise equal (every block of a cluster
-    scales by the same r, and nothing is summed in a varying order)."""
+    version, and two calls on the same inputs bitwise equal (nothing is summed in a
+    varying order)."""
     x, w = rms_inputs(7, rows, D, dtype, cuda)
     want = tref.rmsnorm_ref(x, w)
     for r in routes_taking(D):
