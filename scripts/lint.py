@@ -11,10 +11,12 @@ the full rule set; the fallback keeps the gate meaningful locally.
 
 Independent of ruff, the **span-registry check** always runs: every
 ``span("...")`` / ``mark("...")`` string literal in ``src/`` and
-``benchmarks/`` must appear in ``repro.obs.trace``'s ``SPAN_NAMES`` /
-``MARK_NAMES`` (parsed by AST, no import) — ``check_bench.py`` gates
-metrics derived from those exact strings, so an unregistered name is a
-silently un-armed CI gate, not a style nit.
+``benchmarks/`` must appear in its package's ``SPAN_NAMES`` /
+``MARK_NAMES`` (parsed by AST, no import): ``src/repro_torch/`` in
+``repro_torch.obs.trace``'s, everything else in ``repro.obs.trace``'s.
+Readers find spans by those exact strings (``check_bench.py``'s gates, a
+profile's device time by span), so an unregistered name silently drops
+out of them, not a style nit.
 """
 
 from __future__ import annotations
@@ -136,15 +138,24 @@ def _check_file(path: pathlib.Path) -> list[str]:
 # ---------------------------------------------------------------------------
 
 TRACE_MODULE = ROOT / "src" / "repro" / "obs" / "trace.py"
+#: the port's registry, for the files under ``src/repro_torch/``
+PORT_TRACE_MODULE = ROOT / "src" / "repro_torch" / "obs" / "trace.py"
 #: the file sets the registry check scans: instrumented production code.
 #: tests are exempt — they exercise the tracer with throwaway names.
 SPAN_CHECK_TARGETS = ["src", "benchmarks"]
 
 
-def _registry_names(var: str) -> set[str]:
-    """The string members of ``trace.py``'s ``var`` frozenset, read by AST
+def _registry_module(rel: pathlib.PurePath) -> pathlib.Path:
+    """The ``trace.py`` whose registry governs the file at ``rel`` (relative
+    to the root): the port's for the port's package, the JAX package's for
+    the rest."""
+    return PORT_TRACE_MODULE if rel.parts[:2] == ("src", "repro_torch") else TRACE_MODULE
+
+
+def _registry_names(var: str, module: pathlib.Path = TRACE_MODULE) -> set[str]:
+    """The string members of ``module``'s ``var`` frozenset, read by AST
     (no import: lint must not require jax or the package on sys.path)."""
-    tree = ast.parse(TRACE_MODULE.read_text(), filename=str(TRACE_MODULE))
+    tree = ast.parse(module.read_text(), filename=str(module))
     for node in ast.walk(tree):
         if not isinstance(node, ast.Assign):
             continue
@@ -155,7 +166,7 @@ def _registry_names(var: str) -> set[str]:
             if isinstance(c, ast.Constant) and isinstance(c.value, str):
                 out.add(c.value)
         return out
-    raise AssertionError(f"{var} not found in {TRACE_MODULE}")
+    raise AssertionError(f"{var} not found in {module}")
 
 
 def _span_calls(tree: ast.AST) -> list[tuple[int, str, str]]:
@@ -181,9 +192,10 @@ def _span_calls(tree: ast.AST) -> list[tuple[int, str, str]]:
 
 
 def _span_registry_check() -> int:
-    span_names = _registry_names("SPAN_NAMES")
-    mark_names = _registry_names("MARK_NAMES")
-    registry = {"span": span_names, "mark": mark_names}
+    registries = {
+        m: {"span": _registry_names("SPAN_NAMES", m), "mark": _registry_names("MARK_NAMES", m)}
+        for m in (TRACE_MODULE, PORT_TRACE_MODULE)
+    }
     problems: list[str] = []
     for target in SPAN_CHECK_TARGETS:
         for path in sorted((ROOT / target).rglob("*.py")):
@@ -194,12 +206,14 @@ def _span_registry_check() -> int:
             except SyntaxError:
                 continue  # the main lint reports syntax errors
             rel = path.relative_to(ROOT)
+            module = _registry_module(rel)
             for lineno, fname, name in _span_calls(tree):
-                if name not in registry[fname]:
+                if name not in registries[module][fname]:
                     problems.append(
                         f"{rel}:{lineno}: SPAN001 {fname}({name!r}) not in "
-                        f"trace.{'SPAN_NAMES' if fname == 'span' else 'MARK_NAMES'} "
-                        "— register the name there first (it arms the bench gates)"
+                        f"{module.relative_to(module.parents[3]).as_posix()}'s "
+                        f"{'SPAN_NAMES' if fname == 'span' else 'MARK_NAMES'} "
+                        "— register the name there first (readers find spans by it)"
                     )
     for p in problems:
         print(p)

@@ -32,6 +32,7 @@ import torch
 from repro_torch import tree as T
 from repro_torch.device import resolve_device
 from repro_torch.models import ModelConfig, decode_step, init_params, loss_fn, prefill
+from repro_torch.obs import trace as obs_trace
 from repro_torch.optim import Optimizer
 from repro_torch.parallel import MeshContext, mesh_context, placements, redistribute
 from .sharding import _is_spec, batch_specs, make_rules, param_specs, tree_specs
@@ -70,20 +71,26 @@ def make_train_step(cfg: ModelConfig, opt: Optimizer, *, impl: str | None = None
     parameters the loss computes with (the placed step's FSDP all-gather)."""
 
     def train_step(state: dict, batch: dict) -> tuple[dict, dict[str, Any]]:
-        params = state["params"]
-        live = T.map_leaves(lambda p: p.detach().requires_grad_(True), params)
-        loss, metrics = loss_fn(cfg, live if gather is None else gather(live), batch, impl=impl)
-        grads = torch.autograd.grad(loss, T.leaves(live))
-        # under a mesh each gradient is placed as its parameter (a pending sum over
-        # the data axis is reduced here)
-        grads = T.unflatten(params, [redistribute(g, p.placements) if hasattr(p, "placements")
-                                     else g for g, p in zip(grads, T.leaves(params))])
-        new_params, new_opt, opt_metrics = opt.update(
-            grads, state["opt"], params, state["step"]
-        )
-        new_state = {"params": new_params, "opt": new_opt, "step": state["step"] + 1}
-        metrics = {k: v.detach() for k, v in metrics.items()}
-        return new_state, {"loss": loss.detach(), **metrics, **opt_metrics}
+        with obs_trace.span("train.step"):
+            params = state["params"]
+            live = T.map_leaves(lambda p: p.detach().requires_grad_(True), params)
+            with obs_trace.span("train.forward"):
+                loss, metrics = loss_fn(cfg, live if gather is None else gather(live), batch,
+                                        impl=impl)
+            with obs_trace.span("train.backward"):
+                grads = torch.autograd.grad(loss, T.leaves(live))
+            # under a mesh each gradient is placed as its parameter (a pending sum over
+            # the data axis is reduced here)
+            grads = T.unflatten(params, [redistribute(g, p.placements)
+                                         if hasattr(p, "placements") else g
+                                         for g, p in zip(grads, T.leaves(params))])
+            with obs_trace.span("train.optimizer"):
+                new_params, new_opt, opt_metrics = opt.update(
+                    grads, state["opt"], params, state["step"]
+                )
+            new_state = {"params": new_params, "opt": new_opt, "step": state["step"] + 1}
+            metrics = {k: v.detach() for k, v in metrics.items()}
+            return new_state, {"loss": loss.detach(), **metrics, **opt_metrics}
 
     return train_step
 

@@ -44,6 +44,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.primitives import register_primitive, zeros_like
+from repro_torch.obs import trace as obs_trace
 from . import ref
 from .flash_attention import flash_attention_fwd
 from .rmsnorm import rmsnorm_bwd, rmsnorm_fwd
@@ -115,9 +116,10 @@ class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
-        dq, dk, dv = ref.flash_attention_bwd_chunked(
-            q, k, v, o, lse, do, causal=ctx.causal, window=ctx.window, sm_scale=ctx.scale
-        )
+        with obs_trace.span("attn.bwd"):
+            dq, dk, dv = ref.flash_attention_bwd_chunked(
+                q, k, v, o, lse, do, causal=ctx.causal, window=ctx.window, sm_scale=ctx.scale
+            )
         return dq, dk, dv, None, None, None, None
 
 

@@ -3,17 +3,19 @@
     PYTHONPATH=src python -m repro_torch.launch.profile_train
 
 Trains internlm2-1.8b at full width in bf16 (random weights from a seed, AdamW,
-SyntheticLM batch 8 x 1024: the training cell of ``chip_smoke.py``).  After two
+SyntheticLM batch 8 x 1024: the training cell of ``chip_smoke.py``).  After three
 warm-up steps it runs
 
-* one step split into its phases (forward and loss, backward, optimizer update),
-  each ended by ``torch.cuda.synchronize()`` and timed by the host clock;
 * one whole step timed by the host clock;
 * one whole step under ``torch.profiler``: the device's busy time (the sum of its
   kernels' times), its idle share of the wall time, the number of kernels, the
   kernels that take the most device time, and the device time by kind (the three
   hand-written kernels, GEMMs, the rest);
 * the plain chunked flash backward alone at the step's shape, by CUDA events.
+
+The device time of the forward, the backward, the optimizer update and the attention
+backward inside a step, by the program's spans (``train.*``, ``attn.bwd``), is
+``portbench/tools/spans.py``'s, in the benchmark's training cells.
 """
 
 from __future__ import annotations
@@ -25,14 +27,12 @@ import time
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from repro_torch import tree as T
 from repro_torch.configs import get_config
 from repro_torch.data import DataConfig, SyntheticLM, to_device
 from repro_torch.device import resolve_device
 from repro_torch.distributed import make_train_state_fn, make_train_step
 from repro_torch.kernels import ref
 from repro_torch.kernels.flash_attention import flash_attention_fwd
-from repro_torch.models import loss_fn
 from repro_torch.models.model import stacked_layer_groups
 from repro_torch.optim import OptConfig, make_optimizer
 
@@ -78,25 +78,9 @@ def main() -> int:
     step_fn = make_train_step(cfg, opt)
     ds = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=SEQ, global_batch=BATCH))
     batches = [to_device(ds.batch(i), dev) for i in range(6)]
-    for b in batches[:2]:
+    for b in batches[:3]:
         state, _ = step_fn(state, b)
     torch.cuda.synchronize()
-
-    # one step by phases
-    params = state["params"]
-    t0 = time.monotonic()
-    live = T.map_leaves(lambda p: p.detach().requires_grad_(True), params)
-    loss, _ = loss_fn(cfg, live, batches[2])
-    fwd_s = _sync_s(t0)
-    t0 = time.monotonic()
-    grads = T.unflatten(params, list(torch.autograd.grad(loss, T.leaves(live))))
-    bwd_s = _sync_s(t0)
-    del live, loss
-    t0 = time.monotonic()
-    new_params, new_opt, _ = opt.update(grads, state["opt"], params, state["step"])
-    opt_s = _sync_s(t0)
-    state = {"params": new_params, "opt": new_opt, "step": state["step"] + 1}
-    del grads, new_params, new_opt
 
     t0 = time.monotonic()
     state, m = step_fn(state, batches[3])
@@ -134,7 +118,6 @@ def main() -> int:
 
     summary = {
         "arch": ARCH, "batch": BATCH, "seq": SEQ, "device": torch.cuda.get_device_name(0),
-        "forward_loss_ms": fwd_s * 1e3, "backward_ms": bwd_s * 1e3, "optimizer_ms": opt_s * 1e3,
         "step_wall_ms": wall_s * 1e3, "profiled_wall_ms": prof_wall_s * 1e3,
         "device_busy_ms": busy_ms, "device_idle_share": max(0.0, 1 - busy_ms / (prof_wall_s * 1e3)),
         "kernels": sum(r["count"] for r in rows),

@@ -11,7 +11,9 @@ modality stubs an encoder-decoder or VLM model takes (the same draws), one
 prefill, then greedy decode against the caches (KV for attention layers, conv
 window and SSM state for Mamba layers, projected K/V for cross-attention).
 ``--device cpu`` runs the plain PyTorch versions of the kernels on the CPU; the
-default is ``cuda``.
+default is ``cuda``.  ``--trace OUT.json`` arms a tracer (``repro_torch.obs.trace``)
+and writes the prefill's and each decode step's span (``serve.prefill``,
+``serve.decode_step``) as a Chrome trace, on ``torch.profiler``'s clock.
 
 ``--compiler myia`` serves the Myia-compiled LM (``repro_torch.serve``) as
 ``repro.launch.serve --compiler myia`` does: requests are admitted into
@@ -46,6 +48,7 @@ import torch
 from repro_torch.configs import ARCHS, get_config
 from repro_torch.device import resolve_device
 from repro_torch.models import ModelConfig, decode_step, init_params, prefill
+from repro_torch.obs import trace as obs_trace
 
 
 def make_prompts(
@@ -84,8 +87,9 @@ def serve_prefill(cfg: ModelConfig, params, prompts: torch.Tensor, max_len: int,
     """Prefill the prompts, with the modality stubs of :func:`make_requests`: (logits
     of the last position (B, V) f32, caches).  ``routes`` collects each MoE layer's
     expert indices (``models.prefill``)."""
-    return prefill(cfg, params, prompts, max_len, batch_extras=batch_extras, impl=impl,
-                   routes=routes)
+    with obs_trace.span("serve.prefill", pos=0, batch=prompts.shape[0], length=prompts.shape[1]):
+        return prefill(cfg, params, prompts, max_len, batch_extras=batch_extras, impl=impl,
+                       routes=routes)
 
 
 @torch.inference_mode()
@@ -111,7 +115,8 @@ def serve_decode(
         tok = forced[:, i] if forced is not None else torch.argmax(logits, dim=-1)
         tok = tok.to(torch.int32)
         fed.append(tok)
-        logits, caches = decode_step(cfg, params, tok, start_pos + i, caches, impl=impl)
+        with obs_trace.span("serve.decode_step", pos=start_pos + i, batch=tok.shape[0]):
+            logits, caches = decode_step(cfg, params, tok, start_pos + i, caches, impl=impl)
         if keep_logits:
             kept.append(logits)
     if not fed:
@@ -179,8 +184,9 @@ def parse_args(argv=None) -> argparse.Namespace:
         "--trace",
         default=None,
         metavar="OUT.json",
-        help="myia: record compile + per-request lifecycle spans and write a Chrome "
-        "trace-event file; also prints one telemetry summary line per request",
+        help="record spans and write a Chrome trace-event file: torch, the prefill and "
+        "each decode step; myia, compile + per-request lifecycle spans, and one "
+        "telemetry summary line per request",
     )
     ap.add_argument(
         "--metrics-out",
@@ -212,16 +218,18 @@ def main(argv=None) -> int:
     max_len = args.prompt_len + args.gen
     prompts, extras = make_requests(cfg, args.batch, args.prompt_len, device)
 
-    _sync(device)
-    t0 = time.monotonic()
-    logits, caches = serve_prefill(cfg, params, prompts, max_len, batch_extras=extras)
-    _sync(device)
-    t_prefill = time.monotonic() - t0
+    tracer = obs_trace.Tracer() if args.trace else None
+    with obs_trace.tracing(tracer):
+        _sync(device)
+        t0 = time.monotonic()
+        logits, caches = serve_prefill(cfg, params, prompts, max_len, batch_extras=extras)
+        _sync(device)
+        t_prefill = time.monotonic() - t0
 
-    t1 = time.monotonic()
-    tokens, _ = serve_decode(cfg, params, logits, caches, args.prompt_len, args.gen)
-    _sync(device)
-    t_decode = time.monotonic() - t1
+        t1 = time.monotonic()
+        tokens, _ = serve_decode(cfg, params, logits, caches, args.prompt_len, args.gen)
+        _sync(device)
+        t_decode = time.monotonic() - t1
 
     gen = tokens.cpu().numpy()
     print(f"prefill: {args.batch}×{args.prompt_len} tokens in {t_prefill:.3f}s on {device}")
@@ -232,6 +240,9 @@ def main(argv=None) -> int:
     print("sample generations (token ids):")
     for row in gen[:2]:
         print("  ", row[:16].tolist())
+    if tracer is not None:
+        tracer.write_chrome_trace(args.trace)
+        print(f"wrote {len(tracer.events)} spans to {args.trace}")
     return 0
 
 
@@ -243,7 +254,6 @@ def serve_myia_engine(args: argparse.Namespace, cfg: ModelConfig) -> dict:
     ``stats``, ``cache_stats``, ``wall_s``, the ``tracer`` (with ``--trace``) and,
     with ``--check-oracle``, the oracle's streams (``oracle``, by rid)."""
     from repro_torch.core.torch_backend import ProgramCache
-    from repro_torch.obs import trace as obs_trace
     from repro_torch.serve import ServeEngine, ServeLMDims, init_serve_params, oracle_generate
     from repro_torch.serve.engine import request_telemetry
 

@@ -6,11 +6,10 @@ the same schema, so the port's ``snapshot()`` and Prometheus exposition carry
 the reference's metric names.  The port's ``CacheStats`` names its compile
 counter ``programs_built`` where the reference's says ``xla_compiles``.
 
-The repo grew three incompatible counter surfaces — ``OptStats.as_dict()``
-(nested rule-hit dicts), ``CacheStats.as_dict()`` (flat but its own
-names), and the serve engine's ad-hoc stats dict — so every bench writer
-invented its own JSON keys and ``check_bench.py`` had to know all of
-them.  This module is the single schema:
+Three counter surfaces — ``OptStats.as_dict()`` (nested rule-hit dicts),
+``CacheStats.as_dict()`` (flat but its own names), and the serve engine's
+stats dict — would each need a reader of its own.  This module is the
+single schema:
 
     snapshot(opt=opt_stats, cache=cache.stats, serve=engine_stats)
     # -> {"opt.rule_hits.gadd_zero": 31, "opt.inlined_calls": 12,
@@ -252,9 +251,9 @@ def snapshot(**sources: Any) -> dict[str, Any]:
         snapshot(opt=OptStats(), cache=CacheStats(), serve=engine.stats())
 
     Sources may be ``OptStats`` / ``CacheStats`` / ``MetricsRegistry``
-    (anything with ``as_dict()``), plain dicts, or None (skipped) —
-    benches and ``check_bench.py`` read this instead of each subsystem's
-    private counter names."""
+    (anything with ``as_dict()``), plain dicts, or None (skipped) — the
+    Prometheus exposition and any reader take this instead of each
+    subsystem's private counter names."""
     out: dict[str, Any] = {}
     for prefix, src in sorted(sources.items()):
         if src is None:

@@ -1,35 +1,38 @@
-"""Process-wide tracing: nested spans over the compile pipeline and the
-serving runtime, exportable to Chrome trace-event JSON (loads directly in
-Perfetto / ``chrome://tracing``) or a text phase summary.
-
-The ROADMAP's compile-time item starts with "profile and fix the
-superlinear costs" — impossible while timing exists only as scattered,
-schema-incompatible counters.  This module gives every pipeline phase
-(parse → AD → infer → optimize → closure-elim → fuse → lower) and
-every serve-request lifecycle step one shared, structured instrument:
+"""Process-wide tracing: nested spans over the compile pipeline, the serving
+runtime, the model zoo's train step and its cached decode, exportable to Chrome
+trace-event JSON (loads directly in Perfetto / ``chrome://tracing``), a text
+phase summary, or ``(name, start ns, end ns, thread)`` tuples on the clock of
+``torch.profiler``'s device trace:
 
     tracer = Tracer()
     with tracing(tracer):
-        f(x)                        # compile spans recorded as a side effect
+        f(x)                        # spans recorded as a side effect
     tracer.write_chrome_trace("out.json")   # open in https://ui.perfetto.dev
     print(tracer.phase_summary())
+    tracer.spans_ns()               # beside the profiler's device operations
 
-Design rules (the pattern of the reference's ``serve.faults``):
+Design rules (the pattern of ``serve.faults``):
 
 * **module-global hook, None-check fast path** — instrumentation sites
   call ``span("optimize")`` unconditionally; when no tracer is armed the
   call is one global read returning a shared singleton null span, and the
-  hot paths (worklist pops, decode steps) do **zero** buffer work.  The
-  disarmed-overhead test in ``tests/obs/test_trace.py`` pins this.
+  hot paths (train steps, decode steps, worklist pops) do **zero** buffer
+  work.
 * **exception safety** — ``span`` is a context manager; the record is
   closed (with an ``error`` attr) even when the body raises, so a failing
-  compile phase still shows up with its true duration.
+  phase still shows up with its true duration.
 * **bounded buffer** — the tracer keeps at most ``max_events`` records
   (drops counted in ``dropped``, peak occupancy in ``high_water``), so an
   armed long-running server cannot leak memory through its telemetry.
+* **two clocks, one conversion** — records hold ``time.monotonic()`` readings
+  (the serve engine's clock, so its TTFT and the spans agree exactly); the
+  tracer reads one (``monotonic``, ``time.time_ns``) pair when it is armed and
+  exports on ``time.time_ns``'s clock, which ``torch.profiler`` stamps its
+  device operations with.  Nothing inside a span synchronizes with the card,
+  so a span is the host's time issuing its work.
 
-Span taxonomy: see ``docs/observability.md`` for the full table mapping
-each pipeline stage to its span name.
+Span taxonomy: see ``docs/observability.md`` for the table mapping each
+site to its span name.
 """
 
 from __future__ import annotations
@@ -54,12 +57,12 @@ __all__ = [
 
 #: The span-name taxonomy: every legal ``span(...)`` name, one place.
 #:
-#: ``check_bench.py`` gates metrics derived from these exact strings
-#: (``pipeline_phase_ms.optimize`` descends by span name), so a renamed
-#: or ad-hoc span silently un-arms a CI gate.  Both the registry test
-#: (``tests/obs/test_trace.py``) and the ``scripts/lint.py`` AST check
-#: fail on a ``span("...")`` literal that is not listed here — add new
-#: names HERE first, then use them.
+#: Readers of a trace find spans by these exact strings (the serve engine's
+#: ``request_telemetry``, a profile that sums device time by span), so a
+#: renamed or ad-hoc span silently drops out of them.  ``scripts/lint.py``'s
+#: span-registry check fails on a ``span("...")`` literal under
+#: ``src/repro_torch/`` that is not listed here — add new names HERE first,
+#: then use them.
 SPAN_NAMES = frozenset({
     # compile pipeline (see docs/observability.md for the stage mapping)
     "parse",
@@ -76,16 +79,20 @@ SPAN_NAMES = frozenset({
     "closure.analyze_blockers",
     "fuse.partition",
     "lower",
-    "xla.compile",
-    "xla.tier0_compile",
     # cache tiers (AOT executables + optimized graphs)
     "cache.lookup",
     "cache.write",
     "cache.graph_lookup",
     "cache.graph_write",
-    # serving runtime
+    # serving: the Myia engine and the model zoo's cached prefill and decode
     "serve.prefill",
     "serve.decode_step",
+    # the model zoo's train step and the kernel ops inside it
+    "train.step",
+    "train.forward",
+    "train.backward",
+    "train.optimizer",
+    "attn.bwd",
     # runtime profiler / explain layer
     "explain.report",
 })
@@ -204,6 +211,7 @@ class Tracer:
     small object, and one list append."""
 
     def __init__(self, max_events: int = 100_000) -> None:
+        self.anchor()
         self.max_events = int(max_events)
         self.events: list[SpanRecord] = []
         self.dropped = 0
@@ -213,6 +221,18 @@ class Tracer:
         self.high_water = 0
         self._lock = threading.Lock()
         self._depth = threading.local()
+
+    def anchor(self) -> None:
+        """Read the pair that carries a ``time.monotonic()`` reading onto
+        ``time.time_ns``'s clock: ``time_ns`` between two monotonic reads,
+        paired with their midpoint.  :func:`tracing` reads it each time it
+        arms the tracer, and every record is exported with the pair of the
+        latest arming: exact for the window just armed, while ``time_ns``
+        may be slewed away from it over a tracer kept armed for hours."""
+        m0 = time.monotonic()
+        wall_ns = time.time_ns()
+        m1 = time.monotonic()
+        self._anchor = ((m0 + m1) / 2, wall_ns)
 
     # -- recording ---------------------------------------------------------
     def span(self, name: str, attrs: dict) -> _LiveSpan:
@@ -295,16 +315,25 @@ class Tracer:
         return {k: round(v, 3) for k, v in out.items()}
 
     # -- exporters ---------------------------------------------------------
+    def to_ns(self, t: float) -> int:
+        """A ``time.monotonic()`` reading of this process on ``time.time_ns``'s
+        clock, the clock of ``torch.profiler``'s device operations."""
+        mono, wall_ns = self._anchor
+        return wall_ns + round((t - mono) * 1e9)
+
+    def spans_ns(self) -> list[tuple[str, int, int, int]]:
+        """The closed spans as ``(name, start ns, end ns, thread id)`` on
+        ``time.time_ns``'s clock, in the order they closed."""
+        return [(e.name, self.to_ns(e.t0), self.to_ns(e.t1), e.tid)
+                for e in self.events if e.kind == "span" and e.t1 is not None]
+
     def chrome_trace(self) -> dict:
         """The buffer as a Chrome trace-event JSON object (the ``X``
         complete-event / ``i`` instant-event flavor) — loads unmodified in
         Perfetto (https://ui.perfetto.dev) and ``chrome://tracing``.
-        Timestamps are rebased to the earliest event so the viewer opens
-        at t=0."""
-        if self.events:
-            base = min(e.t0 for e in self.events)
-        else:
-            base = 0.0
+        Timestamps are microseconds on ``time.time_ns``'s clock, as
+        ``torch.profiler``'s own trace has them, so the two open side by
+        side."""
         evs = []
         for e in self.events:
             args = {k: _jsonable(v) for k, v in e.attrs.items()}
@@ -313,7 +342,7 @@ class Tracer:
                 "cat": e.name.split(".", 1)[0],
                 "pid": 1,
                 "tid": e.tid % 1_000_000,
-                "ts": round((e.t0 - base) * 1e6, 1),
+                "ts": self.to_ns(e.t0) / 1e3,
                 "args": args,
             }
             if e.kind == "mark":
@@ -384,6 +413,7 @@ def tracing(tracer: Tracer | None):
     global _ACTIVE
     prev = _ACTIVE
     if tracer is not None:
+        tracer.anchor()
         _ACTIVE = tracer
     try:
         yield tracer

@@ -62,3 +62,42 @@ def test_unregistered_name_would_be_flagged(tmp_path, capsys, monkeypatch):
     assert lint._span_registry_check() == 1
     out = capsys.readouterr().out
     assert "SPAN001" in out and "not.registered" in out
+
+
+def _scan_one(lint, tmp_path, monkeypatch, rel, code):
+    """Run the registry check over a root holding one source file at ``rel``."""
+    path = tmp_path / rel
+    path.parent.mkdir(parents=True)
+    path.write_text(code)
+    (tmp_path / "benchmarks").mkdir(exist_ok=True)
+    monkeypatch.setattr(lint, "ROOT", tmp_path)
+    return lint._span_registry_check()
+
+
+def test_port_names_are_checked_against_the_port_registry(tmp_path, capsys, monkeypatch):
+    """A name only the port registers passes under ``src/repro_torch/``."""
+    lint = _lint()
+    port = lint._registry_names("SPAN_NAMES", lint.PORT_TRACE_MODULE)
+    assert "train.optimizer" in port and "attn.bwd" in port
+    assert "train.optimizer" not in lint._registry_names("SPAN_NAMES")
+    code = "from repro_torch.obs import span\n\nwith span('train.optimizer'):\n    pass\n"
+    assert _scan_one(lint, tmp_path, monkeypatch, "src/repro_torch/step.py", code) == 0
+    assert "SPAN001" not in capsys.readouterr().out
+
+
+def test_unregistered_port_name_is_flagged(tmp_path, capsys, monkeypatch):
+    lint = _lint()
+    code = "from repro_torch.obs import span\n\nwith span('train.not_registered'):\n    pass\n"
+    assert _scan_one(lint, tmp_path, monkeypatch, "src/repro_torch/step.py", code) == 1
+    out = capsys.readouterr().out
+    assert "SPAN001" in out and "train.not_registered" in out
+    assert "src/repro_torch/obs/trace.py" in out
+
+
+def test_port_only_name_is_flagged_in_the_jax_package(tmp_path, capsys, monkeypatch):
+    """The JAX package keeps its own registry: a port-only name fails there."""
+    lint = _lint()
+    code = "from repro.obs import span\n\nwith span('train.optimizer'):\n    pass\n"
+    assert _scan_one(lint, tmp_path, monkeypatch, "src/repro/step.py", code) == 1
+    out = capsys.readouterr().out
+    assert "train.optimizer" in out and "src/repro/obs/trace.py" in out

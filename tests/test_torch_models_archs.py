@@ -26,7 +26,7 @@ from repro_torch import models as tmodels
 from repro_torch import tree as T
 from repro_torch.models import model as tM
 from repro_torch.models.convert import params_from_jax
-from test_torch_models import DECODE_TOL, PREFILL_TOL, assert_close, jax_mode, t, to_np
+from test_torch_models import DECODE_TOL, PREFILL_TOL, assert_close, jax_mode, t, to_np  # noqa: F401
 from test_torch_models_xattn_moe import NEW_ARCHS, _extras, _pair_params, _unstack
 
 

@@ -24,7 +24,7 @@ from repro_torch import tree as T
 from repro_torch.models import layers as tL
 from repro_torch.models import model as tM
 from repro_torch.models.convert import params_from_jax
-from test_torch_models import F32, LAYER_TOL, assert_close, jax_mode, t, to_np
+from test_torch_models import F32, LAYER_TOL, assert_close, jax_mode, t, to_np  # noqa: F401
 
 NEW_ARCHS = ["grok-1-314b", "jamba-v0.1-52b", "kimi-k2-1t-a32b", "llama-3.2-vision-11b",
              "whisper-medium"]
