@@ -38,14 +38,18 @@ DTYPE_CODES = {"float32": 0, "bfloat16": 1}
 #: generated kernels (``codegen.py``) count under ``fused_map`` / ``fused_reduce``,
 #: and each by its generated name in :data:`FUSED_LAUNCHES`.
 LAUNCHES: dict[str, int] = {
-    "rmsnorm_fwd": 0, "rmsnorm_bwd": 0, "flash_attention_fwd": 0, "ssd_scan_fwd": 0,
-    "fused_map": 0, "fused_reduce": 0,
+    "rmsnorm_fwd": 0, "rmsnorm_bwd": 0, "flash_attention_fwd": 0, "flash_attention_bwd": 0,
+    "ssd_scan_fwd": 0, "fused_map": 0, "fused_reduce": 0,
 }
 #: K1 launches since the last :func:`reset_launches`, by generated kernel name.
 FUSED_LAUNCHES: dict[str, int] = {}
 #: K2 launches since the last :func:`reset_launches`, by the route that took them
 #: (``kernels/rmsnorm.py``: ``ROUTES``); they sum to ``LAUNCHES["rmsnorm_fwd"]``.
 K2_ROUTES: dict[str, int] = {}
+#: attention backward calls since the last :func:`reset_launches`, by route
+#: (``kernels/ops.py``: ``attn_bwd_route``): ``"kernel"`` calls are the ones counted
+#: in ``LAUNCHES["flash_attention_bwd"]``, ``"chunked"`` the plain chunked backward's.
+ATTN_BWD_ROUTES: dict[str, int] = {"kernel": 0, "chunked": 0}
 
 _LIB: ctypes.CDLL | None = None
 #: Seconds the last build took in this process (None: loaded a cached library).
@@ -57,6 +61,8 @@ def reset_launches() -> None:
         LAUNCHES[name] = 0
     FUSED_LAUNCHES.clear()
     K2_ROUTES.clear()
+    for route in ATTN_BWD_ROUTES:
+        ATTN_BWD_ROUTES[route] = 0
 
 
 def sources() -> list[Path]:
@@ -156,6 +162,8 @@ def load() -> ctypes.CDLL:
         lib.flash_attention_fwd.restype = i
         lib.flash_attention_fwd_smem.argtypes = [i, i]
         lib.flash_attention_fwd_smem.restype = ctypes.c_longlong
+        lib.flash_attention_bwd.argtypes = [p] * 13 + [i] * 9 + [f, p]
+        lib.flash_attention_bwd.restype = i
         lib.ssd_scan_fwd.argtypes = [p] * 10 + [i] * 9 + [p]
         lib.ssd_scan_fwd.restype = i
         lib.ssd_scan_fwd_smem.argtypes = [i, i, i, i]

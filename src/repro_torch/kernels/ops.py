@@ -9,8 +9,10 @@ Gradients: one ``torch.autograd.Function`` per op, the port of the reference's
 
 * ``None``      — the kernels on a CUDA tensor (the reference's ``pallas`` mode):
                   rmsnorm is K2 forward and K3 backward; attention is K4 forward,
-                  which also writes the row logsumexp, and the plain chunked
-                  backward on ``(q, k, v, o, lse)``.  On a CPU tensor rmsnorm runs
+                  which also writes the row logsumexp, and a backward on
+                  ``(q, k, v, o, lse)`` chosen by :func:`attn_bwd_route`: K4's
+                  tensor-core backward in bf16 at head_dim 64 and 128, the plain
+                  chunked backward otherwise.  On a CPU tensor rmsnorm runs
                   the same Function with the plain versions of K2 and K3 (the
                   reference's ``pallas_interpret`` math), and attention is plain
                   autograd through :func:`ref.flash_attention_ref`.
@@ -45,14 +47,14 @@ import torch
 
 from repro_torch.core.primitives import register_primitive, zeros_like
 from repro_torch.obs import trace as obs_trace
-from . import ref
-from .flash_attention import flash_attention_fwd
+from . import build, ref
+from .flash_attention import BWD_HEAD_DIMS, flash_attention_bwd, flash_attention_fwd
 from .rmsnorm import rmsnorm_bwd, rmsnorm_fwd
 from .ssd_scan import ssd_scan_fwd
 
 __all__ = [
     "flash_attention", "rmsnorm", "ssd_scan", "ssd_step", "IMPLS", "SSD_CHUNK",
-    "get_kernel_mode", "set_kernel_mode",
+    "attn_bwd_route", "get_kernel_mode", "set_kernel_mode",
 ]
 
 IMPLS = (None, "ref", "chunked")
@@ -95,9 +97,22 @@ def _needs_grad(*ts: torch.Tensor) -> bool:
 # ===========================================================================
 
 
+def attn_bwd_route(q: torch.Tensor, kernel: bool) -> str:
+    """The attention backward's route, from what the Function sees: ``"kernel"`` (K4's
+    tensor-core backward) for a forward that ran K4 (``kernel``) on bf16 at a head_dim
+    of :data:`flash_attention.BWD_HEAD_DIMS`; ``"chunked"`` (the plain chunked backward)
+    for every other dtype and head_dim and for the plain chunked forward
+    (``impl="chunked"``).  The kernel has no f32 or other head_dim instantiation: those
+    take this route by choice, never by a fallback on error."""
+    if kernel and q.dtype == torch.bfloat16 and q.shape[-1] in BWD_HEAD_DIMS:
+        return "kernel"
+    return "chunked"
+
+
 class _FlashAttention(torch.autograd.Function):
     """Forward: K4 with its logsumexp (``kernel``) or the plain chunked twin.
-    Backward: the plain chunked backward from the saved ``(q, k, v, o, lse)``."""
+    Backward: from the saved ``(q, k, v, o, lse)``, on :func:`attn_bwd_route`'s route,
+    counted in ``build.ATTN_BWD_ROUTES``."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, scale, kernel):
@@ -110,16 +125,25 @@ class _FlashAttention(torch.autograd.Function):
                 q, k, v, causal=causal, window=window, sm_scale=scale
             )
         ctx.save_for_backward(q, k, v, o, lse)
-        ctx.causal, ctx.window, ctx.scale = causal, window, scale
+        ctx.causal, ctx.window, ctx.scale, ctx.kernel = causal, window, scale, kernel
         return o
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
+        route = attn_bwd_route(q, ctx.kernel)
+        build.ATTN_BWD_ROUTES[route] += 1
         with obs_trace.span("attn.bwd"):
-            dq, dk, dv = ref.flash_attention_bwd_chunked(
-                q, k, v, o, lse, do, causal=ctx.causal, window=ctx.window, sm_scale=ctx.scale
-            )
+            if route == "kernel":
+                dq, dk, dv = flash_attention_bwd(
+                    q, k, v, o, lse, do.contiguous(), causal=ctx.causal, window=ctx.window,
+                    sm_scale=ctx.scale,
+                )
+            else:
+                dq, dk, dv = ref.flash_attention_bwd_chunked(
+                    q, k, v, o, lse, do, causal=ctx.causal, window=ctx.window,
+                    sm_scale=ctx.scale,
+                )
         return dq, dk, dv, None, None, None, None
 
 
@@ -249,8 +273,8 @@ def ssd_step(h, x_t, dt_t, A, B_t, C_t):
 # backpropagators; bprops are Myia-subset functions, so reverse-over-reverse
 # stays possible through *other* ops while kernel vjps terminate the chain).
 # The primitives run the ops in the global kernel mode; a vjp primitive takes
-# the op's own gradient (its autograd Function: K3, the chunked attention and
-# SSD backward passes) from the saved inputs.
+# the op's own gradient (its autograd Function: K3, the attention backward on its
+# route, the chunked SSD backward) from the saved inputs.
 # ===========================================================================
 
 

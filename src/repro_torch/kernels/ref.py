@@ -221,7 +221,9 @@ def flash_attention_bwd_chunked(
         ds_ij = p_ij·(do_i·v_j − δ_i)
         dq_i += scale·Σ_j ds_ij·k_j ;  dk_j = scale·Σ_i ds_ij·q_i
 
-    Returns (dq, dk, dv) in the dtypes of q, k, v."""
+    p is 0 on every masked pair, so a row that sees no key contributes nothing: its dq
+    row is 0, as K4's backward kernel gives it.  Returns (dq, dk, dv) in the dtypes of
+    q, k, v."""
     B, H, Sq, D = q.shape
     KVH, Skv = k.shape[1], k.shape[2]
     group = H // KVH
@@ -238,8 +240,8 @@ def flash_attention_bwd_chunked(
         vr = vf[:, :, blk].repeat_interleave(group, dim=1)
         s = torch.einsum("bhqd,bhkd->bhqk", qf, kr) * scale
         mask = _block_mask(Sq, Skv, bi, block_k, causal, window, q.device)
-        s = s.masked_fill(~mask[None, None], _NEG_INF)
-        p = torch.exp(s - lse)  # masked → 0
+        # masked → 0, also on a row that sees no key (its lse is the mask value itself)
+        p = torch.exp(s - lse).masked_fill(~mask[None, None], 0.0)
         dv_r = torch.einsum("bhqk,bhqd->bhkd", p, dof)
         dp = torch.einsum("bhqd,bhkd->bhqk", dof, vr)
         ds = p * (dp - delta)

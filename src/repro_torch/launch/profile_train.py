@@ -11,7 +11,8 @@ warm-up steps it runs
   kernels' times), its idle share of the wall time, the number of kernels, the
   kernels that take the most device time, and the device time by kind (the three
   hand-written kernels, GEMMs, the rest);
-* the plain chunked flash backward alone at the step's shape, by CUDA events.
+* the attention backward the step runs (K4's tensor-core backward) alone at the
+  step's shape, by CUDA events.
 
 The device time of the forward, the backward, the optimizer update and the attention
 backward inside a step, by the program's spans (``train.*``, ``attn.bwd``), is
@@ -31,8 +32,7 @@ from repro_torch.configs import get_config
 from repro_torch.data import DataConfig, SyntheticLM, to_device
 from repro_torch.device import resolve_device
 from repro_torch.distributed import make_train_state_fn, make_train_step
-from repro_torch.kernels import ref
-from repro_torch.kernels.flash_attention import flash_attention_fwd
+from repro_torch.kernels.flash_attention import flash_attention_bwd, flash_attention_fwd
 from repro_torch.models.model import stacked_layer_groups
 from repro_torch.optim import OptConfig, make_optimizer
 
@@ -41,6 +41,7 @@ TOP = 16  # kernels listed
 
 KINDS = (  # (kind, substrings of the kernel's name), first match wins
     ("K4 flash_attention_fwd", ("fa_fwd_tc_kernel", "fa_fwd_simt_kernel")),
+    ("K4 flash_attention_bwd", ("fa_bwd_pre_kernel", "fa_bwd_tc_kernel", "fa_bwd_dq_kernel")),
     ("K2 rmsnorm_fwd", ("rmsnorm_fwd_kernel",)),
     ("K3 rmsnorm_bwd", ("rmsnorm_bwd_kernel", "rmsnorm_bwd_dw_kernel")),
     ("GEMM", ("gemm", "nvjet", "cutlass", "xmma", "sm90_")),
@@ -99,7 +100,7 @@ def main() -> int:
         kinds[_kind(r["name"])] = kinds.get(_kind(r["name"]), 0.0) + r["us"] / 1e3
     del state
 
-    # the plain chunked flash backward alone, at the step's shape
+    # the attention backward alone, at the step's shape
     gen = torch.Generator(device=dev).manual_seed(0)
     q = torch.randn((BATCH, cfg.n_heads, SEQ, cfg.hd), generator=gen, device=dev).bfloat16()
     k = torch.randn((BATCH, cfg.n_kv_heads, SEQ, cfg.hd), generator=gen, device=dev).bfloat16()
@@ -110,7 +111,7 @@ def main() -> int:
     for _ in range(6):
         s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         s.record()
-        ref.flash_attention_bwd_chunked(q, k, v, o, lse, do, causal=True)
+        flash_attention_bwd(q, k, v, o, lse, do, causal=True)
         e.record()
         torch.cuda.synchronize()
         times.append(s.elapsed_time(e))
@@ -122,8 +123,8 @@ def main() -> int:
         "device_busy_ms": busy_ms, "device_idle_share": max(0.0, 1 - busy_ms / (prof_wall_s * 1e3)),
         "kernels": sum(r["count"] for r in rows),
         "device_ms_by_kind": kinds,
-        "flash_bwd_chunked_ms_per_call": flash_bwd_ms,
-        "flash_bwd_chunked_ms_per_step": flash_bwd_ms * cfg.n_layers,
+        "flash_bwd_ms_per_call": flash_bwd_ms,
+        "flash_bwd_ms_per_step": flash_bwd_ms * cfg.n_layers,
     }
     print(json.dumps(summary))
     for r in rows[:TOP]:

@@ -30,7 +30,8 @@ from repro_torch import kernels
 from repro_torch.kernels import build, ops
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels.flash_attention import check_args as fa_check_args
-from repro_torch.kernels.flash_attention import flash_attention_fwd
+from repro_torch.kernels.flash_attention import check_bwd_args as fa_check_bwd_args
+from repro_torch.kernels.flash_attention import flash_attention_bwd, flash_attention_fwd
 from repro_torch.kernels.rmsnorm import check_args as rms_check_args
 from repro_torch.kernels.rmsnorm import check_bwd_args as rms_check_bwd_args
 from repro_torch.kernels.rmsnorm import rmsnorm_bwd, rmsnorm_fwd
@@ -167,8 +168,8 @@ def test_cpu_dispatch_runs_plain_versions_and_launches_nothing():
     y = kernels.rmsnorm(q, torch.ones(32))
     s = kernels.ssd_scan(*ssd_in)
     assert kernels.LAUNCHES == {
-        "rmsnorm_fwd": 0, "rmsnorm_bwd": 0, "flash_attention_fwd": 0, "ssd_scan_fwd": 0,
-        "fused_map": 0, "fused_reduce": 0,
+        "rmsnorm_fwd": 0, "rmsnorm_bwd": 0, "flash_attention_fwd": 0, "flash_attention_bwd": 0,
+        "ssd_scan_fwd": 0, "fused_map": 0, "fused_reduce": 0,
     }
     torch.testing.assert_close(s, tref.ssd_scan_ref(*ssd_in)[0], rtol=0, atol=0)
     torch.testing.assert_close(o, tref.flash_attention_ref(q, k, v, causal=True), rtol=0, atol=0)
@@ -225,6 +226,81 @@ def test_flash_attention_argument_checks(args, error):
     else:
         with pytest.raises((ValueError, TypeError), match=error):
             fa_check_args(q, k, v, window)
+
+
+def _bwd_args(D=64, dtype=torch.bfloat16, **replace):
+    """(q, k, v, o, lse, do) of a backward call the kernel takes, with any replaced."""
+    q, k, v = _qkv(D=D, dtype=dtype)
+    args = dict(q=q, k=k, v=v, o=torch.zeros_like(q), lse=torch.zeros(*q.shape[:3], 1),
+                do=torch.zeros_like(q))
+    args.update(replace)
+    return tuple(args.values())
+
+
+@pytest.mark.parametrize(
+    "args,error",
+    [
+        (lambda: _bwd_args(), None),
+        (lambda: _bwd_args(D=128), None),
+        (lambda: _bwd_args(dtype=torch.float32), "takes bfloat16"),
+        (lambda: _bwd_args(D=32), "no backward instantiation"),
+        (lambda: _bwd_args(D=256), "no backward instantiation"),
+        (lambda: _bwd_args(k=torch.zeros(1, 1, 16, 64)), "float32 or all bfloat16"),
+        (lambda: _bwd_args(do=torch.zeros(1, 2, 16, 64)), "do must be"),
+        (lambda: _bwd_args(o=torch.zeros(1, 2, 8, 64, dtype=torch.bfloat16)), "o must be"),
+        (lambda: _bwd_args(lse=torch.zeros(1, 2, 16)), "lse must be"),
+        (lambda: _bwd_args(lse=torch.zeros(1, 2, 16, 1, dtype=torch.bfloat16)), "lse must be"),
+        (lambda: _bwd_args(do=torch.zeros(1, 2, 64, 16, dtype=torch.bfloat16).transpose(2, 3)),
+         "contiguous"),
+        (lambda: _bwd_args(q=torch.zeros(1, 2, 64, 16, dtype=torch.bfloat16).transpose(2, 3)),
+         "contiguous"),
+    ],
+)
+def test_flash_attention_bwd_argument_checks(args, error):
+    """What the backward wrapper takes, checked before any launch."""
+    if error is None:
+        fa_check_bwd_args(*args(), None)
+    else:
+        with pytest.raises((ValueError, TypeError), match=error):
+            fa_check_bwd_args(*args(), None)
+
+
+def test_flash_attention_bwd_refuses_cpu_tensors():
+    with pytest.raises(ValueError, match="CUDA kernel"):
+        flash_attention_bwd(*_bwd_args(), causal=True)
+
+
+@pytest.mark.parametrize(
+    "dtype,D,kernel,route",
+    [
+        (torch.bfloat16, 64, True, "kernel"),
+        (torch.bfloat16, 128, True, "kernel"),
+        (torch.float32, 64, True, "chunked"),
+        (torch.float32, 128, True, "chunked"),
+        (torch.bfloat16, 16, True, "chunked"),
+        (torch.bfloat16, 32, True, "chunked"),
+        (torch.bfloat16, 256, True, "chunked"),
+        (torch.bfloat16, 64, False, "chunked"),  # impl="chunked": the plain chunked forward
+        (torch.bfloat16, 128, False, "chunked"),
+    ],
+)
+def test_attention_backward_route(dtype, D, kernel, route):
+    """The backward's route from what the Function sees: the kernel for a K4 forward in
+    bf16 at head_dim 64 or 128, the plain chunked backward for everything else."""
+    assert ops.attn_bwd_route(torch.zeros(1, 2, 8, D, dtype=dtype), kernel) == route
+
+
+def test_chunked_attention_backward_is_counted_on_its_route():
+    """``impl="chunked"`` runs the Function with the plain chunked forward and backward on
+    any device: one backward, counted on the chunked route, with no kernel launch."""
+    q, k, v = (t.normal_().requires_grad_(True) for t in _qkv(D=64, dtype=torch.bfloat16))
+    build.reset_launches()
+    o = ops.flash_attention(q, k, v, causal=True, impl="chunked")
+    o.sum().backward()
+    assert build.ATTN_BWD_ROUTES == {"kernel": 0, "chunked": 1}
+    assert build.LAUNCHES["flash_attention_bwd"] == 0
+    build.reset_launches()
+    assert build.ATTN_BWD_ROUTES == {"kernel": 0, "chunked": 0}
 
 
 @pytest.mark.parametrize(
@@ -395,6 +471,27 @@ def test_chunked_backward_matches_reference(case):
     )
     for a, b in zip(got, want):
         assert a.shape == b.shape
+        np.testing.assert_allclose(f32(a), f32(b), **GRAD_TOL)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_chunked_backward_rows_that_see_no_key(causal):
+    """Rows past Skv whose window lies wholly behind them (here rows 7 to 11 of 12, over
+    5 keys, window 3) see no key: the chunked backward gives them a zero dq row and
+    takes nothing from them into dk and dv, as K4's backward kernel does.  The other
+    rows' gradients are those of plain autograd over those rows alone."""
+    q, k, v = (torch.from_numpy(a) for a in make_qkv(21, 1, 4, 2, 12, 5, 16))
+    do = torch.from_numpy(np.random.RandomState(22).randn(1, 4, 12, 16).astype(np.float32))
+    seen = tref.attention_mask(12, 5, causal=causal, window=3).any(-1)
+    assert seen.tolist() == [True] * 7 + [False] * 5
+    o, lse = tref.flash_attention_fwd_lse_chunked(q, k, v, causal=causal, window=3)
+    dq, dk, dv = tref.flash_attention_bwd_chunked(q, k, v, o, lse, do, causal=causal,
+                                                  window=3)
+    assert torch.all(dq[:, :, 7:] == 0)
+    qs, ks, vs = (t.clone().requires_grad_(True) for t in (q[:, :, :7], k, v))
+    os_ = tref.flash_attention_ref(qs, ks, vs, causal=causal, window=3)
+    want = torch.autograd.grad(os_, (qs, ks, vs), do[:, :, :7])
+    for a, b in zip((dq[:, :, :7], dk, dv), want):
         np.testing.assert_allclose(f32(a), f32(b), **GRAD_TOL)
 
 

@@ -19,11 +19,17 @@ tensor cores) is also held at the main paths' geometries and ragged edges
 (``TC_CASES``: causal, windowed, and the non-causal Sq ≠ Skv calls of whisper-medium
 at head_dim 64 and of llama-3.2-vision-11b) against the twin of its rounding points,
 ``ref.flash_attention_fwd_tc_twin``, which rounds P to bf16 before P·V as the kernel
-does, and its gradients through the chunked backward against plain autograd in bf16
-at the bf16 tolerance; its f32 cases run the SIMT kernel, whose output and lse tests
-also take (``SIMT_CASES``, f32 only) the main paths' f32 shapes, every head_dim at
-GQA groups of 1, 4 and 8, windows that cross a KV tile and ragged shapes.  Two K4
-calls on the same inputs are bitwise equal.  For the SSD scan
+does, and its gradients (the tensor-core backward) against plain autograd in bf16
+at the bf16 tolerance.  K4's backward (bf16, head_dim 64 and 128) is held against the
+plain chunked backward on the same inputs (``BWD_CASES``: causal, windowed and
+non-causal masks, GQA groups 1, 2 and 4, ragged Sq != Skv, rows that see no key, the
+training cells' shapes) element by element at the bf16 tolerance and by each gradient's
+relative norm error (≤ 1e-2); calls agree at that tolerance (dQ's adds are atomic),
+bitwise under PyTorch's deterministic algorithms (they then take turns); and f32 and
+head_dims 32 and 256 take the chunked route.  K4's f32 cases run the
+SIMT kernel, whose output and lse tests also take (``SIMT_CASES``, f32 only) the main
+paths' f32 shapes, every head_dim at GQA groups of 1, 4 and 8, windows that cross a KV
+tile and ragged shapes.  Two K4 calls on the same inputs are bitwise equal.  For the SSD scan
 (K5) the cases of ``tests/kernels/test_ssd_scan.py``, a ragged sequence, the
 mamba2-reduced shape and the serving shapes of mamba2-370m (32 heads) and the Jamba
 block (128 heads).  Tolerances: 2e-5 in f32
@@ -52,7 +58,7 @@ import torch
 from repro_torch import kernels
 from repro_torch.kernels import build, k1_cases, ops
 from repro_torch.kernels import ref as tref
-from repro_torch.kernels.flash_attention import flash_attention_fwd
+from repro_torch.kernels.flash_attention import flash_attention_bwd, flash_attention_fwd
 from repro_torch.kernels.rmsnorm import rmsnorm_bwd, rmsnorm_fwd
 from repro_torch.kernels.ssd_scan import ssd_scan_fwd
 from repro_torch.models import model as tmodel
@@ -381,8 +387,8 @@ def test_flash_attention_tensor_core_kernel(cuda, case):
 
 @pytest.mark.parametrize("D,window", [(64, None), (128, 48)])
 def test_flash_attention_function_gradients_bf16(cuda, D, window):
-    """K4 forward (the tensor-core kernel) + the chunked backward against plain
-    autograd (impl="ref") in bf16, at the bf16 tolerance."""
+    """K4 forward and backward (the tensor-core kernels) against plain autograd
+    (impl="ref") in bf16, at the bf16 tolerance."""
     arrays = make_qkv(13, 1, 4, 2, 128, 128, D)
     g = torch.from_numpy(np.random.RandomState(14).randn(1, 4, 128, D).astype(np.float32))
     grads = {}
@@ -394,6 +400,127 @@ def test_flash_attention_function_gradients_bf16(cuda, D, window):
     for a, b in zip(grads[None], grads["ref"]):
         assert a.dtype == torch.bfloat16
         np.testing.assert_allclose(f32(a), f32(b), **TOL["bfloat16"])
+
+
+# K4's backward on the tensor cores (bf16, head_dim 64 and 128), name: (B, H, KVH, Sq,
+# Skv, D, causal, window): causal, windowed (causal and not) and non-causal masks, GQA
+# groups 1, 2 and 4, ragged Sq != Skv (37 x 70, either side longer) and 1000 x 1000
+# (off the 64-query and 128-key tiles), rows past Skv that see no key (101 to 199: both
+# backwards give them nothing), and the two training cells' shapes.
+BWD_CASES = {
+    "causal_hd128_gqa2": (1, 4, 2, 256, 256, 128, True, None),
+    "noncausal_hd64_gqa1": (2, 2, 2, 200, 200, 64, False, None),
+    "window48_hd128_gqa4": (1, 8, 2, 300, 300, 128, True, 48),
+    "window40_noncausal_hd64_gqa4": (1, 4, 1, 150, 150, 64, False, 40),
+    "ragged_37x70_causal_hd64_gqa2": (2, 4, 2, 37, 70, 64, True, None),
+    "ragged_37x70_cross_hd128_gqa1": (2, 4, 4, 37, 70, 128, False, None),
+    "ragged_70x37_cross_hd64_gqa2": (1, 4, 2, 70, 37, 64, False, None),
+    "ragged_1000_causal_hd128_gqa2": (1, 4, 2, 1000, 1000, 128, True, None),
+    "ragged_1000_window100_hd64_gqa4": (1, 8, 2, 1000, 1000, 64, True, 100),
+    "no_key_rows_window32_hd64_gqa2": (1, 4, 2, 200, 70, 64, True, 32),
+    "cell_8x1024": (8, 16, 8, 1024, 1024, 128, True, None),
+    "cell_2x4096": (2, 16, 8, 4096, 4096, 128, True, None),
+}
+
+
+def bwd_inputs(case, seed=15):
+    """bf16 (q, k, v, o, lse, do) of a backward case: o and lse from K4's forward."""
+    B, H, KVH, Sq, Skv, D, causal, window = BWD_CASES[case]
+    q, k, v = (torch.from_numpy(a).to("cuda", torch.bfloat16)
+               for a in make_qkv(seed, B, H, KVH, Sq, Skv, D))
+    o, lse = flash_attention_fwd(q, k, v, causal=causal, window=window, return_lse=True)
+    do = torch.from_numpy(np.random.RandomState(seed + 1).randn(B, H, Sq, D).astype(np.float32))
+    return (q, k, v, o, lse, do.to("cuda", torch.bfloat16)), dict(causal=causal, window=window)
+
+
+def rel_norm_error(got: torch.Tensor, want: torch.Tensor) -> float:
+    return float(torch.linalg.vector_norm(got.float() - want.float())
+                 / torch.linalg.vector_norm(want.float()))
+
+
+@pytest.mark.parametrize("case", sorted(BWD_CASES))
+def test_flash_attention_bwd_kernel_matches_chunked(cuda, case):
+    """dq, dk, dv against the plain chunked backward on the same bf16 inputs: every
+    element at the bf16 tolerance, and each gradient's relative norm error at 1e-2
+    (printed: P and dS enter the products rounded to bf16)."""
+    args, masks = bwd_inputs(case)
+    before = kernels.LAUNCHES["flash_attention_bwd"]
+    got = flash_attention_bwd(*args, **masks)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["flash_attention_bwd"] == before + 1
+    want = tref.flash_attention_bwd_chunked(*args, **masks)
+    errors = {}
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert a.dtype == torch.bfloat16 and a.shape == b.shape
+        np.testing.assert_allclose(f32(a), f32(b), **TOL["bfloat16"], err_msg=name)
+        errors[name] = rel_norm_error(a, b)
+    print(f"{case}: relative norm errors {errors}")
+    assert all(e <= 1e-2 for e in errors.values()), errors
+
+
+@pytest.fixture(params=[False, True], ids=["unordered", "ordered"])
+def deterministic(request):
+    """PyTorch's deterministic algorithms off or on for one test (warning only where an
+    op has none), the setting before restored after."""
+    before = (torch.are_deterministic_algorithms_enabled(),
+              torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.use_deterministic_algorithms(request.param, warn_only=True)
+    try:
+        yield request.param
+    finally:
+        torch.use_deterministic_algorithms(before[0], warn_only=before[1])
+
+
+@pytest.mark.parametrize("case", ["causal_hd128_gqa2", "ragged_1000_window100_hd64_gqa4",
+                                  "window40_noncausal_hd64_gqa4", "cell_2x4096"])
+def test_flash_attention_bwd_kernel_repeats(cuda, case, deterministic):
+    """dK and dV are summed in a fixed order: three calls bitwise equal.  dQ's f32 sum over
+    the key tiles arrives in an order that changes, so its calls agree at the tolerance;
+    under PyTorch's deterministic algorithms its adds take turns in key-tile order and
+    its calls are bitwise equal too (at the 2 x 4096 cell's 32 key tiles, over several
+    waves of blocks, as well), and still match the chunked backward."""
+    args, masks = bwd_inputs(case, seed=17)
+    first = flash_attention_bwd(*args, **masks)
+    for _ in range(2):
+        again = flash_attention_bwd(*args, **masks)
+        assert torch.equal(first[1], again[1]) and torch.equal(first[2], again[2])
+        if deterministic:
+            assert torch.equal(first[0], again[0]), rel_norm_error(again[0], first[0])
+        else:
+            np.testing.assert_allclose(f32(first[0]), f32(again[0]), **TOL["bfloat16"])
+            assert rel_norm_error(first[0], again[0]) <= 1e-2
+    if deterministic:
+        want = tref.flash_attention_bwd_chunked(*args, **masks)
+        for name, a, b in zip(("dq", "dk", "dv"), first, want):
+            np.testing.assert_allclose(f32(a), f32(b), **TOL["bfloat16"], err_msg=name)
+            assert rel_norm_error(a, b) <= 1e-2, name
+
+
+@pytest.mark.parametrize("dtype,D,route", [("bfloat16", 64, "kernel"), ("bfloat16", 128, "kernel"),
+                                           ("float32", 128, "chunked"),
+                                           ("bfloat16", 256, "chunked"),
+                                           ("bfloat16", 32, "chunked")])
+def test_flash_attention_backward_routes(cuda, dtype, D, route):
+    """Through ``ops.flash_attention``: one backward a call on the route its input
+    takes (``build.ATTN_BWD_ROUTES``), one backward kernel launch on the kernel route
+    and none on the chunked one, and the gradients of the plain autograd (``impl="ref"``)
+    at the dtype's gradient tolerance."""
+    arrays = make_qkv(18, 1, 4, 2, 96, 96, D)
+    g = torch.from_numpy(np.random.RandomState(19).randn(1, 4, 96, D).astype(np.float32))
+    grads = {}
+    for impl in (None, "ref"):
+        q, k, v = (torch.from_numpy(a).to(cuda, DTYPES[dtype]).requires_grad_(True)
+                   for a in arrays)
+        o = ops.flash_attention(q, k, v, causal=True, impl=impl)
+        build.reset_launches()
+        grads[impl] = torch.autograd.grad(o, (q, k, v), g.to(cuda, DTYPES[dtype]))
+        if impl is None:
+            assert build.ATTN_BWD_ROUTES == {"kernel": int(route == "kernel"),
+                                             "chunked": int(route == "chunked")}
+            assert kernels.LAUNCHES["flash_attention_bwd"] == int(route == "kernel")
+    tol = GRAD_TOL if dtype == "float32" else TOL["bfloat16"]
+    for a, b in zip(grads[None], grads["ref"]):
+        np.testing.assert_allclose(f32(a), f32(b), **tol)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

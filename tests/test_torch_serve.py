@@ -209,21 +209,21 @@ def test_main_path_hands_kernels_what_they_take(checked_kernels, dtype, arch):
     params = init_params(cfg, seed=0, device="cpu")
     prompts = serve.make_prompts(cfg, B, P, torch.device("cpu"))
     logits, caches = serve.serve_prefill(cfg, params, prompts, P + GEN)
-    want = {"flash_attention_fwd": 0, "ssd_scan_fwd": 0, "rmsnorm_fwd": 2 * L + 1,
-            "rmsnorm_bwd": 0, "fused_map": 0, "fused_reduce": 0}
+    want = {"flash_attention_fwd": 0, "flash_attention_bwd": 0, "ssd_scan_fwd": 0,
+            "rmsnorm_fwd": 2 * L + 1, "rmsnorm_bwd": 0, "fused_map": 0, "fused_reduce": 0}
     assert LAUNCHES == {**want, mixer_kernel: L * (SSD_LAUNCHES if arch == "mamba2-370m" else 1)}
     reset_launches()
     toks, kept = serve.serve_decode(cfg, params, logits, caches, P, GEN, keep_logits=True)
     assert LAUNCHES == {
-        "flash_attention_fwd": 0, "ssd_scan_fwd": 0, "rmsnorm_fwd": (2 * L + 1) * GEN,
-        "rmsnorm_bwd": 0, "fused_map": 0, "fused_reduce": 0,
+        "flash_attention_fwd": 0, "flash_attention_bwd": 0, "ssd_scan_fwd": 0,
+        "rmsnorm_fwd": (2 * L + 1) * GEN, "rmsnorm_bwd": 0, "fused_map": 0, "fused_reduce": 0,
     }
     assert all(bool(torch.isfinite(k).all()) and k.dtype == torch.float32 for k in kept)
     # impl="ref" reaches no kernel
     reset_launches()
     serve.serve_prefill(cfg, params, prompts, P + GEN, impl="ref")
-    assert LAUNCHES == {"flash_attention_fwd": 0, "ssd_scan_fwd": 0, "rmsnorm_fwd": 0,
-                        "rmsnorm_bwd": 0, "fused_map": 0, "fused_reduce": 0}
+    assert LAUNCHES == {"flash_attention_fwd": 0, "flash_attention_bwd": 0, "ssd_scan_fwd": 0,
+                        "rmsnorm_fwd": 0, "rmsnorm_bwd": 0, "fused_map": 0, "fused_reduce": 0}
 
 
 def test_full_width_mamba2_counts_are_48_97():
@@ -243,8 +243,8 @@ def expected_launches(cfg) -> tuple[dict, dict]:
     specs = cfg.layer_specs()
     dec_k2 = sum(1 + s.ffn + s.cross_attn + (s.mixer == "mamba") for s in specs) + 1
     enc = cfg.n_enc_layers if cfg.enc_dec else 0
-    zero = {"flash_attention_fwd": 0, "ssd_scan_fwd": 0, "rmsnorm_fwd": 0, "rmsnorm_bwd": 0,
-            "fused_map": 0, "fused_reduce": 0}
+    zero = {"flash_attention_fwd": 0, "flash_attention_bwd": 0, "ssd_scan_fwd": 0,
+            "rmsnorm_fwd": 0, "rmsnorm_bwd": 0, "fused_map": 0, "fused_reduce": 0}
     prefill = {**zero,
                "flash_attention_fwd": sum(s.mixer == "attn" for s in specs)
                + sum(s.cross_attn for s in specs) + enc,

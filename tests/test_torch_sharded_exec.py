@@ -359,8 +359,9 @@ def test_launch_train_torch_under_torch_distributed_run(tmp_path):
         assert len(r["losses"]) == 3 and all(np.isfinite(r["losses"]))
         # one count of each kernel a step (none on the CPU, where the plain versions run)
         assert len(r["launches"]) == 3 and all(
-            set(c) == {"rmsnorm_fwd", "rmsnorm_bwd", "flash_attention_fwd", "ssd_scan_fwd",
-                       "fused_map", "fused_reduce", "fused"} for c in r["launches"])
+            set(c) == {"rmsnorm_fwd", "rmsnorm_bwd", "flash_attention_fwd", "flash_attention_bwd",
+                       "ssd_scan_fwd", "fused_map", "fused_reduce", "fused"}
+            for c in r["launches"])
     assert first[0]["losses"] == first[1]["losses"]
     for r in second:  # steps 3 and 4 only: steps 0-2 came back from the shards
         assert r["steps"] == 5 and len(r["losses"]) == 2

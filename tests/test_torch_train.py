@@ -36,7 +36,9 @@ from repro_torch import tree as T
 from repro_torch.data import DataConfig, SyntheticLM, to_device
 from repro_torch.distributed import make_train_state_fn, make_train_step
 from repro_torch.kernels import LAUNCHES, ops, ref, reset_launches
+from repro_torch.kernels.build import ATTN_BWD_ROUTES
 from repro_torch.kernels.flash_attention import check_args as fa_check_args
+from repro_torch.kernels.flash_attention import check_bwd_args as fa_check_bwd_args
 from repro_torch.kernels.rmsnorm import check_args as rms_check_args
 from repro_torch.kernels.rmsnorm import check_bwd_args as rms_check_bwd_args
 from repro_torch.kernels.ssd_scan import LAUNCHES_PER_CALL as SSD_LAUNCHES
@@ -212,6 +214,13 @@ def checked_kernels(monkeypatch):
             )
         return ref.flash_attention_ref(q, k, v, causal=causal, window=window, sm_scale=sm_scale)
 
+    def flash_attention_bwd(q, k, v, o, lse, do, *, causal, window, sm_scale):
+        fa_check_bwd_args(q, k, v, o, lse, do, window)
+        LAUNCHES["flash_attention_bwd"] += 1
+        return ref.flash_attention_bwd_chunked(
+            q, k, v, o, lse, do, causal=causal, window=window, sm_scale=sm_scale
+        )
+
     def rmsnorm_fwd(x, w, *, eps):
         rms_check_args(x, w)
         LAUNCHES["rmsnorm_fwd"] += 1
@@ -228,6 +237,7 @@ def checked_kernels(monkeypatch):
         return ref.ssd_scan_ref(x, dt, A, B, C)
 
     monkeypatch.setattr(ops, "flash_attention_fwd", flash_attention_fwd)
+    monkeypatch.setattr(ops, "flash_attention_bwd", flash_attention_bwd)
     monkeypatch.setattr(ops, "rmsnorm_fwd", rmsnorm_fwd)
     monkeypatch.setattr(ops, "rmsnorm_bwd", rmsnorm_bwd)
     monkeypatch.setattr(ops, "ssd_scan_fwd", ssd_scan_fwd)
@@ -256,6 +266,7 @@ def test_train_step_hands_kernels_what_they_take(checked_kernels, name, dtype):
     state, metrics = make_train_step(tc, opt)(state, to_device(ds.batch(0), CPU))
     assert LAUNCHES == {"flash_attention_fwd": 0, "ssd_scan_fwd": 0,
                         mixer_kernel: (L + R) * (SSD_LAUNCHES if name == "mamba2-370m" else 1),
+                        "flash_attention_bwd": 0,  # head_dim 16: the chunked backward
                         "rmsnorm_fwd": 2 * L + 1 + 2 * R,
                         "rmsnorm_bwd": 2 * L + 1, "fused_map": 0, "fused_reduce": 0}
     assert bool(torch.isfinite(metrics["loss"])) and int(state["step"]) == 1
@@ -264,8 +275,33 @@ def test_train_step_hands_kernels_what_they_take(checked_kernels, name, dtype):
             "params"])))
     reset_launches()
     make_train_step(tc, opt, impl="ref")(state, to_device(ds.batch(1), CPU))
-    assert LAUNCHES == {"flash_attention_fwd": 0, "ssd_scan_fwd": 0, "rmsnorm_fwd": 0,
-                        "rmsnorm_bwd": 0, "fused_map": 0, "fused_reduce": 0}
+    assert LAUNCHES == {"flash_attention_fwd": 0, "flash_attention_bwd": 0, "ssd_scan_fwd": 0,
+                        "rmsnorm_fwd": 0, "rmsnorm_bwd": 0, "fused_map": 0, "fused_reduce": 0}
+
+
+@pytest.mark.parametrize("head_dim,route", [(64, "kernel"), (128, "kernel"), (32, "chunked")])
+def test_train_step_hands_the_attention_backward_what_it_takes(checked_kernels, head_dim,
+                                                               route):
+    """internlm2-1.8b reduced, in bf16 at a head_dim the backward kernel takes (64, 128)
+    or not (32): per step one attention backward a layer on that route
+    (``ATTN_BWD_ROUTES``), through the backward wrapper's own checks and counter on the
+    kernel route (``LAUNCHES["flash_attention_bwd"]``), and none with ``impl="ref"``."""
+    _, tc = configs("internlm2-1.8b")
+    tc = dataclasses.replace(tc, param_dtype="bfloat16", compute_dtype="bfloat16",
+                             head_dim=head_dim)
+    L = tc.n_layers
+    opt = make_optimizer(OptConfig(lr=1e-3, warmup_steps=1, total_steps=4))
+    state = make_train_state_fn(tc, opt, device="cpu")()
+    ds = SyntheticLM(DataConfig(vocab=tc.vocab, seq_len=16, global_batch=2))
+    state, metrics = make_train_step(tc, opt)(state, to_device(ds.batch(0), CPU))
+    assert bool(torch.isfinite(metrics["loss"]))
+    assert ATTN_BWD_ROUTES == {"kernel": L * (route == "kernel"),
+                               "chunked": L * (route == "chunked")}
+    assert LAUNCHES["flash_attention_bwd"] == ATTN_BWD_ROUTES["kernel"]
+    reset_launches()
+    make_train_step(tc, opt, impl="ref")(state, to_device(ds.batch(1), CPU))
+    assert ATTN_BWD_ROUTES == {"kernel": 0, "chunked": 0}
+    assert LAUNCHES["flash_attention_bwd"] == 0
 
 
 def test_logits_product_gradient_keeps_the_f32_cotangent():
